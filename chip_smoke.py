@@ -1,0 +1,476 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``tneq_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Runs from the root of a checkout, needs one CUDA card, imports nothing of
+JAX or ``tneq_tpu``, and prints one JSON line per phase:
+
+1. setup — the card's name and power limit (``nvidia-smi``), the kernels
+   built from ``tneq_tpu_torch/csrc`` with ``nvcc`` (build time), TF32 off;
+2. kernels — B1/B2 (``csrc/chain_sweep.cu``) against their plain PyTorch
+   versions on the card at n = 29 sites, S in {9, 256, 1024}, with the
+   tolerances stated below, and their times (CUDA events, median);
+3. bench — the ``bench.py`` training program on the port: 32-qubit, bond-16
+   MPS, float32, plain SGD lr 1e-3 on −log F, 200 steps; step-0 loss against
+   the port's plain path on the host, falling loss, launch counts
+   (B1 = 3, B2 = 2 per step), steps/s;
+4. experiment — the symmetry-breaking experiment, MPS topology, network
+   fidelity, end to end (target → validate → prune), plus a 20-step
+   validation fit held against the same fit on the host.
+
+Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
+line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+before the last line.  Without a CUDA device the script exits non-zero.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from dataclasses import replace
+
+# f32 tolerances, as max|kernel - plain| / max|plain| per output (f: over
+# sum|u_n * w|, the scale of the dot product).  Kernel and plain version do
+# the same f32 arithmetic in another summation order; 29 rescaled sites of
+# S-term sums stay within a few 1e-6 of each other.
+TOL_KERNEL = 5e-5
+TOL_STEP0 = 1e-4  # bench step-0 loss, card vs host, relative
+TOL_FIT = 1e-4  # 20-step validation fit, card vs host
+SWEEP_N = 29  # middle sites of the 32-qubit chain
+SWEEP_BONDS = (3, 16, 32)  # S = 9 (ragged), 256 (bench), 1024 (the cap)
+BENCH_STEPS = 200
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+
+_KERNELS = {
+    "chain_sweep_fwd": {
+        "id": "B1",
+        "replaces": "tneq_tpu/ops/chain_overlap.py:160",
+    },
+    "chain_sweep_bwd": {
+        "id": "B2",
+        "replaces": "tneq_tpu/ops/chain_overlap.py:224",
+    },
+}
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Median time of one ``fn()`` on the card (CUDA events, after warm-up)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def sweep_bounds(n: int, S: int) -> dict:
+    """Least time on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): each input
+    read once, each output written once, over the work the sweep does."""
+    fwd_bytes = 4 * (n * S * S + 2 * S + n * S + n + 2 + S)
+    fwd_flops = 2 * n * S * S
+    bwd_bytes = 4 * (S + n * S * S + n * S + n + n * S * S + S)
+    bwd_flops = 3 * n * S * S
+
+    def bound(b, f):
+        tb, tf = b / HBM_BYTES_PER_S, f / FP32_FLOPS
+        return {"bound_ms": max(tb, tf) * 1e3,
+                "bound_by": "bytes" if tb >= tf else "operations"}
+
+    return {"chain_sweep_fwd": bound(fwd_bytes, fwd_flops),
+            "chain_sweep_bwd": bound(bwd_bytes, bwd_flops)}
+
+
+def rel_err(k, p, scale=None) -> float:
+    denom = float(p.abs().max()) if scale is None else float(scale)
+    return float((k - p).abs().max()) / max(denom, 1e-30)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def phase_setup() -> dict:
+    import torch
+
+    from tneq_tpu_torch.ops import cuda_build
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    libs = cuda_build.build()
+    build_s = time.perf_counter() - t0
+    for name in libs:
+        print(f"--- nvcc log: {name} ---\n{cuda_build.build_log(name)}",
+              file=sys.stderr, flush=True)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "float32 matmul precision is not 'highest'")
+    rec = {
+        "phase": "setup",
+        "nvidia_smi": smi,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "device": torch.cuda.get_device_name(0),
+        "build_s": build_s,
+        "libraries": sorted(str(p.name) for p in libs.values()),
+        "tf32": torch.backends.cuda.matmul.allow_tf32,
+    }
+    emit(rec)
+    return rec
+
+
+def _random_sweep(bond: int, n: int, seed: int, dev):
+    """u0, M, w of the M-form of two random max-abs-normalised chains with
+    ``n`` middle sites, physical rank 2, bond ``bond`` (S = bond²)."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.ops.chain_overlap import chain_pair_to_mv
+
+    rng = np.random.default_rng(seed)
+
+    def core(*shape):
+        x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)
+        return x / x.abs().max()
+
+    def chain():
+        mids = torch.stack([core(bond, 2, 2, bond) for _ in range(n)])
+        return core(2, 2, 2, bond), mids, core(bond, 2, 2, 2)
+
+    v0, M, w = chain_pair_to_mv(chain(), chain())
+    u0 = v0 / v0.abs().max()
+    return u0.contiguous(), M.contiguous(), w.contiguous()
+
+
+def phase_kernels() -> dict:
+    import torch
+
+    from tneq_tpu_torch.ops import chain_overlap as co
+
+    dev = torch.device("cuda", 0)
+    cases = []
+    for bond in SWEEP_BONDS:
+        S = bond * bond
+        u0, M, w = _random_sweep(bond, SWEEP_N, seed=bond, dev=dev)
+        kf = co._sweep_fwd_cuda(u0, M, w)
+        pf = co._sweep_fwd_plain(u0, M, w)
+        torch.cuda.synchronize()
+        names = ("ustack", "scales", "f", "logsum", "ulast")
+        err = {nm: rel_err(k, p) for nm, k, p in zip(names, kf, pf)}
+        err["f"] = rel_err(kf[2], pf[2], scale=(pf[4] * w).abs().sum())
+        r0 = (1.7 * w).contiguous()
+        kb = co._sweep_bwd_cuda(r0, M, pf[0], pf[1])
+        pb = co._sweep_bwd_plain(r0, M, pf[0], pf[1])
+        torch.cuda.synchronize()
+        err["dM"] = rel_err(kb[0], pb[0])
+        err["du0"] = rel_err(kb[1], pb[1])
+        abs_fwd = max(float((k - p).abs().max()) for k, p in zip(kf, pf))
+        abs_bwd = max(float((k - p).abs().max()) for k, p in zip(kb, pb))
+        times = {
+            "chain_sweep_fwd": {
+                "ms": cuda_ms(lambda: co._sweep_fwd_cuda(u0, M, w)),
+                "plain_ms": cuda_ms(lambda: co._sweep_fwd_plain(u0, M, w)),
+            },
+            "chain_sweep_bwd": {
+                "ms": cuda_ms(lambda: co._sweep_bwd_cuda(r0, M, pf[0], pf[1])),
+                "plain_ms": cuda_ms(lambda: co._sweep_bwd_plain(r0, M, pf[0], pf[1])),
+            },
+        }
+        case = {"n": SWEEP_N, "S": S, "rel_err": err,
+                "max_abs_err": {"chain_sweep_fwd": abs_fwd, "chain_sweep_bwd": abs_bwd},
+                "times": times, "bounds": sweep_bounds(SWEEP_N, S)}
+        cases.append(case)
+        bad = {k: v for k, v in err.items() if not v <= TOL_KERNEL}
+        check(not bad, f"S={S}: kernel disagrees with plain version beyond "
+                       f"{TOL_KERNEL}: {bad}")
+    rec = {"phase": "kernels", "tolerance": TOL_KERNEL, "cases": cases}
+    emit(rec)
+    return rec
+
+
+def _profile_steps(step, step_ms: float, steps: int = 5) -> dict:
+    """Device time by kernel over a short window of ``step()`` calls
+    (torch.profiler), and the device's idle share against ``step_ms``, the
+    unprofiled wall time of one step; ``None`` where the trace shows no
+    device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    step()  # keep one-time work out of the window
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    by_name = {}
+    for ev in prof.key_averages():
+        if ev.device_time_total and ev.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[ev.key] = ev.device_time_total / 1e3 / steps  # ms per step
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {
+        "steps": steps,
+        "device_busy_ms_per_step": busy if busy else None,
+        "device_idle_share": (1.0 - busy / step_ms) if busy else None,
+        "kernel_launches_per_step": sum(
+            ev.count for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA) / steps,
+        "top_kernels_ms_per_step": {k[:80]: v for k, v in top} if top else None,
+    }
+
+
+def phase_bench(smi: str) -> dict:
+    import torch
+
+    from tneq_tpu_torch.bench.headline import build_problem, sgd_step
+    from tneq_tpu_torch.model.qctn import params_from_numpy
+    from tneq_tpu_torch.ops.chain_overlap import launch_counts, reset_launch_counts
+    from tneq_tpu_torch.train.network_fit import network_log_fidelity
+
+    graph, params_np, target_np = build_problem()
+    p_host = params_from_numpy(params_np, "cpu")
+    t_host = params_from_numpy(target_np, "cpu")
+    with torch.no_grad():
+        loss0_host = float(-network_log_fidelity(graph, p_host, t_host))
+    params = params_from_numpy(params_np, "cuda")
+    target = params_from_numpy(target_np, "cuda")
+    _, loss0 = sgd_step(graph, params, target)
+    loss0 = float(loss0)
+    check(math.isfinite(loss0), f"step-0 loss is not finite: {loss0}")
+    rel0 = abs(loss0 - loss0_host) / max(abs(loss0_host), 1e-30)
+    check(rel0 <= TOL_STEP0, f"step-0 loss {loss0} vs host {loss0_host} (rel {rel0})")
+
+    p = params
+    for _ in range(3):  # warm-up
+        p, _ = sgd_step(graph, p, target)
+    torch.cuda.synchronize()
+    p = params
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(BENCH_STEPS):
+        p, loss = sgd_step(graph, p, target)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    losses = torch.stack(losses).cpu()
+    check(bool(torch.isfinite(losses).all()), "non-finite loss in the bench run")
+    check(float(losses[-1]) < float(losses[0]),
+          f"loss did not fall: {float(losses[0])} -> {float(losses[-1])}")
+    check(counts["chain_sweep_fwd"] == 3 * BENCH_STEPS
+          and counts["chain_sweep_bwd"] == 2 * BENCH_STEPS,
+          f"launch counts {counts}, expected B1 = {3 * BENCH_STEPS}, "
+          f"B2 = {2 * BENCH_STEPS}")
+    box = {"p": p}
+
+    def one_step():
+        box["p"], _ = sgd_step(graph, box["p"], target)
+
+    prof = _profile_steps(one_step, dt / BENCH_STEPS * 1e3)
+    rec = {
+        "phase": "bench",
+        "program": "bench.py::_build_step_fn on tneq_tpu_torch: 32q MPS, "
+                   "bond 16, phys 16, float32, SGD lr 1e-3 on -log F",
+        "steps": BENCH_STEPS,
+        "steps_per_s": BENCH_STEPS / dt,
+        "ms_per_step": dt / BENCH_STEPS * 1e3,
+        "loss_step0": loss0,
+        "loss_step0_host": loss0_host,
+        "loss_step0_rel_err": rel0,
+        "loss_first": float(losses[0]),
+        "loss_last": float(losses[-1]),
+        "launches": counts,
+        "launches_per_step": {k: v / BENCH_STEPS for k, v in counts.items()},
+        "profile": prof,
+        "card": smi,
+    }
+    emit(rec)
+    return rec
+
+
+def _experiment_config(**kw):
+    import torch
+
+    from tneq_tpu_torch.apps.symmetry_breaking import SymmetryBreakingConfig
+
+    # Budgets from a host rehearsal of this configuration: validation
+    # converges near 1400 steps, and the planted cores refit within ~320
+    # steps; the other candidates spend the whole prune budget.  The exit
+    # is tested every 16 steps, so the host runs ahead of the card.
+    base = dict(
+        n_qubits=12, rank=2, topology="mps", bond_dim=16,
+        fidelity_mode="network", dtype=torch.float32, optimizer="adam",
+        validate_lr=2e-2, validate_steps=2000, prune_lr=5e-2, prune_steps=480,
+        max_outer_iterations=1, tol=1e-3, fit_jit_scope="step",
+        fit_sync_every=16, device="cuda",
+    )
+    base.update(kw)
+    return SymmetryBreakingConfig(**base)
+
+
+def phase_experiment() -> dict:
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.apps.symmetry_breaking import (
+        make_experiment, symmetry_breaking, target_tensor_init,
+        validate_target_tensor,
+    )
+    from tneq_tpu_torch.model.qctn import init_params, params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.ops.chain_overlap import launch_counts, reset_launch_counts
+
+    cfg = _experiment_config()
+    exp = make_experiment(cfg)
+    planted = [3, 7]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    target = target_tensor_init(exp, planted, 1)
+    ok, fid, vsteps, fitted = validate_target_tensor(exp, target, 2, return_params=True)
+    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0,
+                                         warm_params=fitted, verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = launch_counts()
+    check(math.isfinite(fid), f"validation fidelity is not finite: {fid}")
+    check(counts["chain_sweep_fwd"] > 0 and counts["chain_sweep_bwd"] > 0,
+          f"the experiment did not run the sweep kernels: {counts}")
+
+    # the same 20-step validation fit on the card and on the host
+    short = replace(cfg, validate_steps=20)
+    t_np = params_to_numpy(target[0])
+    mask_np = target[1].cpu().numpy()
+    p_np = params_to_numpy(init_params(exp.graph, 5, torch.float32, device="cpu"))
+    fits = {}
+    for where in ("cuda", "cpu"):
+        e = make_experiment(replace(short, device=where))
+        res = e.run_fit(
+            e.validate_fit, params_from_numpy(p_np, where), e.mask_vector([]),
+            (params_from_numpy(t_np, where), torch.as_tensor(mask_np, device=where)),
+        )
+        fits[where] = (float(-torch.log1p(-res.infidelity)), int(res.steps),
+                       params_to_numpy(res.params))
+    nlf_d, nlf_h = fits["cuda"][0], fits["cpu"][0]
+    nlf_err = abs(nlf_d - nlf_h) / max(abs(nlf_h), 1e-30)
+    p_err = max(
+        float(np.abs(fits["cuda"][2][k] - fits["cpu"][2][k]).max())
+        / max(float(np.abs(fits["cpu"][2][k]).max()), 1e-30)
+        for k in fits["cpu"][2]
+    )
+    check(fits["cuda"][1] == fits["cpu"][1] == 20,
+          f"20-step fit steps: card {fits['cuda'][1]}, host {fits['cpu'][1]}")
+    check(nlf_err <= TOL_FIT and p_err <= TOL_FIT,
+          f"20-step fit card vs host: -log F rel {nlf_err}, params rel {p_err}")
+    rec = {
+        "phase": "experiment",
+        "config": {"n_qubits": cfg.n_qubits, "bond_dim": cfg.bond_dim,
+                   "rank": cfg.rank, "dtype": "float32",
+                   "optimizer": cfg.optimizer,
+                   "validate_lr": cfg.validate_lr,
+                   "validate_steps": cfg.validate_steps,
+                   "prune_lr": cfg.prune_lr,
+                   "prune_steps": cfg.prune_steps,
+                   "sync_every": cfg.fit_sync_every, "planted": planted},
+        "validated": ok,
+        "fidelity": fid,
+        "validate_steps_taken": vsteps,
+        "pruned": sorted(pruned),
+        "planted_recovered": sorted(set(pruned) & set(planted)),
+        "attempts": attempts,
+        "seconds": dt,
+        "launches": counts,
+        "fit20": {"neg_log_f_card": nlf_d, "neg_log_f_host": nlf_h,
+                  "neg_log_f_rel_err": nlf_err, "params_rel_err": p_err},
+    }
+    emit(rec)
+    return rec
+
+
+def kernels_line(kern: dict, bench: dict) -> dict:
+    main_case = next(c for c in kern["cases"] if c["S"] == 256)
+    rows = []
+    for name, meta in _KERNELS.items():
+        rows.append({
+            "name": name,
+            "id": meta["id"],
+            "route": "cuda",
+            "source": "tneq_tpu_torch/csrc/chain_sweep.cu",
+            "replaces": meta["replaces"],
+            "launches": bench["launches"][name],
+            "max_abs_err": main_case["max_abs_err"][name],
+            "ms": main_case["times"][name]["ms"],
+            "plain_ms": main_case["times"][name]["plain_ms"],
+            "bound_ms": main_case["bounds"][name]["bound_ms"],
+            "bound_by": main_case["bounds"][name]["bound_by"],
+            "library_ms": None,
+            "shape": {"n": main_case["n"], "S": main_case["S"]},
+        })
+    return {"kernels": rows}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible; this script runs only "
+              "on the card", file=sys.stderr)
+        return 2
+    try:
+        import tneq_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
+        return 2
+    try:
+        setup = phase_setup()
+        kern = phase_kernels()
+        bench = phase_bench(setup["nvidia_smi"])
+        phase_experiment()
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
+        return 1
+    emit(kernels_line(kern, bench))
+    print(nvidia_smi(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

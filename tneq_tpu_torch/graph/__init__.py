@@ -1,0 +1,28 @@
+from .dsl import CircuitGraph, CoreSpec, Edge, parse_graph, get_symbol, render_dsl
+from .generators import (
+    mps_graph,
+    tree_graph,
+    wall_graph,
+    wall_graph_col,
+    random_graph,
+    example_graph,
+    build_brick_wall_incidence,
+    incidence_to_graph,
+)
+
+__all__ = [
+    "CircuitGraph",
+    "CoreSpec",
+    "Edge",
+    "parse_graph",
+    "get_symbol",
+    "render_dsl",
+    "mps_graph",
+    "tree_graph",
+    "wall_graph",
+    "wall_graph_col",
+    "random_graph",
+    "example_graph",
+    "build_brick_wall_incidence",
+    "incidence_to_graph",
+]
