@@ -17,7 +17,21 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    (B1 = 3, B2 = 2 per step), steps/s;
 4. experiment — the symmetry-breaking experiment, MPS topology, network
    fidelity, end to end (target → validate → prune), plus a 20-step
-   validation fit held against the same fit on the host.
+   validation fit held against the same fit on the host;
+5. transfer_kernels — B3 (float32) and B4 (complex64,
+   ``csrc/transfer_step.cu``) against their plain versions at (B, D, K) in
+   {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)}, forward and the
+   backward's d_env (the kernel on the transposed core), with their times
+   (CUDA events around one call, and the card's own time from
+   torch.profiler), those of the one ``torch.einsum`` call that computes
+   the same step, and bounds;
+6. born_rule — the Born-rule Trainer at full width: 8 qubits, bond 8,
+   Hermite order 4, batch 512, float32, SGD-G, 200 steps; the losses of the
+   first 20 steps against the host's loss at the card's cores, a falling
+   loss, B3 = 10 launches per step (5 forward, 5 d_env), B4 = 0;
+7. cli — ``apps.train_single_node.main`` at its defaults (complex64, 8
+   qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 10 launches per step,
+   finite losses, the first 20 against the same run on the host.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -26,6 +40,7 @@ before the last line.  Without a CUDA device the script exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -45,6 +60,16 @@ SWEEP_BONDS = (3, 16, 32)  # S = 9 (ragged), 256 (bench), 1024 (the cap)
 BENCH_STEPS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
+# B3/B4 against their plain versions: the same f32 sums of at most
+# D^2 K^2 = 4096 terms in another order
+TOL_STEP = 2e-5
+STEP_SHAPES = ((130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4))  # (B, D, K)
+BORN_SHAPE = (512, 8, 4)  # the born_rule phase's transfer steps
+CLI_SHAPE = (32, 3, 3)  # the cli phase's
+BORN_STEPS = 200
+CLI_STEPS = 200
+CHECK_STEPS = 20  # card-vs-host comparisons of the two training phases
+MIDDLE_STEPS = 5  # transfer steps per sweep of an 8-qubit chain
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -54,6 +79,14 @@ _KERNELS = {
     "chain_sweep_bwd": {
         "id": "B2",
         "replaces": "tneq_tpu/ops/chain_overlap.py:224",
+    },
+    "transfer_step": {
+        "id": "B3",
+        "replaces": "tneq_tpu/ops/pallas_kernels.py:91",
+    },
+    "transfer_step_complex": {
+        "id": "B4",
+        "replaces": "tneq_tpu/ops/pallas_kernels.py:177",
     },
 }
 
@@ -99,21 +132,52 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
+def device_ms(fn, reps: int = 20):
+    """Device time of one ``fn()``: the CUDA kernels it launches, summed by
+    torch.profiler over ``reps`` calls after a warm-up; ``None`` where the
+    trace shows no device time.  At small shapes the CUDA-event time of
+    :func:`cuda_ms` is the host's time to issue the call, and this is the
+    card's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return total / 1e3 / reps if total else None
+
+
+def _bound(nbytes: float, flops: float) -> dict:
+    """Least time on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32)."""
+    tb, tf = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return {"bound_ms": max(tb, tf) * 1e3,
+            "bound_by": "bytes" if tb >= tf else "operations"}
+
+
 def sweep_bounds(n: int, S: int) -> dict:
-    """Least time on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32): each input
-    read once, each output written once, over the work the sweep does."""
+    """B1/B2: each input read once, each output written once, over the
+    work the sweep does."""
     fwd_bytes = 4 * (n * S * S + 2 * S + n * S + n + 2 + S)
     fwd_flops = 2 * n * S * S
     bwd_bytes = 4 * (S + n * S * S + n * S + n + n * S * S + S)
     bwd_flops = 3 * n * S * S
+    return {"chain_sweep_fwd": _bound(fwd_bytes, fwd_flops),
+            "chain_sweep_bwd": _bound(bwd_bytes, bwd_flops)}
 
-    def bound(b, f):
-        tb, tf = b / HBM_BYTES_PER_S, f / FP32_FLOPS
-        return {"bound_ms": max(tb, tf) * 1e3,
-                "bound_by": "bytes" if tb >= tf else "operations"}
 
-    return {"chain_sweep_fwd": bound(fwd_bytes, fwd_flops),
-            "chain_sweep_bwd": bound(bwd_bytes, bwd_flops)}
+def step_bound(B: int, D: int, K: int, complex_: bool) -> dict:
+    """B3/B4 at env [B,D,D], a [D,K,D], mx [B,K,K] -> [B,D,D]: bytes of
+    the inputs and the output once; flops of the factorised step,
+    2 B (2 D^3 K + D^2 K^2), four times as many for complex64."""
+    elem = 8 if complex_ else 4
+    nbytes = elem * (2 * B * D * D + D * K * D + B * K * K)
+    flops = 2 * B * (2 * D ** 3 * K + D * D * K * K) * (4 if complex_ else 1)
+    return _bound(nbytes, flops)
 
 
 def rel_err(k, p, scale=None) -> float:
@@ -422,10 +486,207 @@ def phase_experiment() -> dict:
     return rec
 
 
-def kernels_line(kern: dict, bench: dict) -> dict:
+def _step_inputs(B: int, D: int, K: int, complex_: bool, seed: int, dev):
+    """env [B,D,D], a [D,K,D], mx [B,K,K] from numpy, max-abs 1."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def mk(*shape):
+        x = rng.standard_normal(shape)
+        if complex_:
+            x = x + 1j * rng.standard_normal(shape)
+        x = x / np.abs(x).max()
+        return torch.as_tensor(x.astype(np.complex64 if complex_ else np.float32), device=dev)
+
+    return mk(B, D, D), mk(D, K, D), mk(B, K, K)
+
+
+def phase_transfer_kernels() -> dict:
+    import torch
+
+    from tneq_tpu_torch.ops import transfer_step as ts
+
+    dev = torch.device("cuda", 0)
+    cases = []
+    for B, D, K in STEP_SHAPES:
+        for name, complex_ in (("transfer_step", False), ("transfer_step_complex", True)):
+            plain = ts.transfer_step_complex_plain if complex_ else ts.transfer_step_plain
+            env, a, mx = _step_inputs(B, D, K, complex_, seed=B + D, dev=dev)
+            kf, pf = ts._launch(env, a, mx, complex_), plain(env, a, mx)
+            # the backward's d_env: the same kernel on the transposed core
+            g = _step_inputs(B, D, K, complex_, seed=B + D + 1, dev=dev)[0]
+            a_t = (a.conj() if complex_ else a).permute(2, 1, 0).contiguous()
+            m_t = mx.conj().resolve_conj() if complex_ else mx
+            kb, pb = ts._launch(g, a_t, m_t, complex_), plain(g, a_t, m_t)
+            torch.cuda.synchronize()
+            err = {"fwd": rel_err(kf, pf), "d_env": rel_err(kb, pb)}
+            bra = a.conj() if complex_ else a
+            calls = {
+                "": lambda: ts._launch(env, a, mx, complex_),
+                "plain_": lambda: plain(env, a, mx),
+                "library_": lambda: torch.einsum("zab,akc,zkl,bld->zcd", env, a, mx, bra),
+            }
+            case = {
+                "kernel": name, "B": B, "D": D, "K": K,
+                "zb_ct_smem": list(ts.kernel_plan(B, D, K, D, env.dtype)),
+                "rel_err": err,
+                "max_abs_err": max(float((kf - pf).abs().max()), float((kb - pb).abs().max())),
+                **{f"{k}ms": cuda_ms(fn) for k, fn in calls.items()},
+                **{f"{k}device_ms": device_ms(fn) for k, fn in calls.items()},
+                **step_bound(B, D, K, complex_),
+            }
+            cases.append(case)
+            bad = {k: v for k, v in err.items() if not v <= TOL_STEP}
+            check(not bad, f"{name} at (B, D, K) = {(B, D, K)} disagrees with its "
+                           f"plain version beyond {TOL_STEP}: {bad}")
+    rec = {"phase": "transfer_kernels", "tolerance": TOL_STEP, "cases": cases}
+    emit(rec)
+    return rec
+
+
+def phase_born_rule(smi: str) -> dict:
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params, params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.ops import transfer_step as ts
+    from tneq_tpu_torch.train.data import gaussian_batches
+    from tneq_tpu_torch.train.trainer import Trainer, TrainingConfig, basis_states
+
+    B, D, K = BORN_SHAPE
+    graph = parse_graph(mps_graph(8, D, phys=K))
+    p_np = params_to_numpy(init_params(graph, 0, torch.float32, device="cpu"))
+
+    def setup(where: str, steps: int):
+        tr = Trainer(graph, config=TrainingConfig(max_steps=steps, log_every=0),
+                     dtype=torch.float32, device=where)
+        return (tr, gaussian_batches(4, B, 8, seed=0, device=where),
+                basis_states(graph, dtype=torch.float32, device=where))
+
+    # The first steps on the card, keeping their cores; the host's loss at
+    # those cores must equal the card's.  (A free-running host trajectory
+    # parts from the card's: float32 Born-rule probabilities are tiny
+    # differences of large terms, and two summation orders differ past 1e-4
+    # after a few Stiefel steps.  It is reported, not checked.)
+    tc, data_c, states_c = setup("cuda", CHECK_STEPS)
+    th, data_h, states_h = setup("cpu", CHECK_STEPS)
+    params = params_from_numpy(p_np, "cuda")
+    opt = tc.optimizer.init(params)
+    card, host_at_card = [], []
+    for i in range(CHECK_STEPS):
+        cores = params_to_numpy(params)
+        params, opt, loss = tc.train_step(params, opt, states_c, data_c[i % 4])
+        card.append(float(loss))
+        with torch.no_grad():
+            host_at_card.append(float(th.loss(params_from_numpy(cores, "cpu"), states_h,
+                                              data_h[i % 4])))
+    rel_tf = [abs(c - h) / abs(h) for c, h in zip(card, host_at_card)]
+    check(max(rel_tf) <= TOL_STEP0,
+          f"born_rule: card loss vs host loss at the same cores, rel {max(rel_tf)}")
+    _, host_free = th.fit(params_from_numpy(p_np, "cpu"), data_h, states=states_h,
+                          verbose=False)
+
+    # the main run: the reference loop on the card
+    tm, _, _ = setup("cuda", BORN_STEPS)
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    params, stats = tm.fit(params_from_numpy(p_np, "cuda"), data_c, states=states_c,
+                           verbose=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ts.launch_counts()
+    losses = np.array(stats.losses)
+    check(bool(np.isfinite(losses).all()), "born_rule: non-finite loss")
+    check(losses[-4:].mean() < losses[:4].mean(),
+          f"born_rule: loss did not fall: {losses[:4].mean()} -> {losses[-4:].mean()}")
+    per_step = 2 * MIDDLE_STEPS
+    check(counts["transfer_step"] == per_step * BORN_STEPS
+          and counts["transfer_step_complex"] == 0,
+          f"born_rule launch counts {counts}, expected B3 = {per_step * BORN_STEPS}, B4 = 0")
+    box = {"p": params, "o": tm.optimizer.init(params), "i": 0}
+
+    def one_step():
+        box["p"], box["o"], _ = tm.train_step(box["p"], box["o"], states_c,
+                                              data_c[box["i"] % 4])
+        box["i"] += 1
+
+    prof = _profile_steps(one_step, dt / BORN_STEPS * 1e3)
+    rec = {
+        "phase": "born_rule",
+        "program": "Trainer on mps_graph(8, 8, phys=4), float32, TrainingConfig() "
+                   "(sgdg lr 1e-2 momentum 0.9), gaussian_batches(4, 512, 8, seed=0)",
+        "strategy": tm.strategy,
+        "steps": BORN_STEPS,
+        "steps_per_s": BORN_STEPS / dt,
+        "ms_per_step": dt / BORN_STEPS * 1e3,
+        "loss_first4_mean": float(losses[:4].mean()),
+        "loss_last4_mean": float(losses[-4:].mean()),
+        "losses_every_20": [float(x) for x in losses[::20]],
+        "first_losses_card": card,
+        "host_loss_at_card_cores_rel_err_max": max(rel_tf),
+        "free_running_host_rel_err": [abs(c - h) / abs(h)
+                                      for c, h in zip(card, host_free.losses)],
+        "launches": counts,
+        "launches_per_step": {k: v / BORN_STEPS for k, v in counts.items()},
+        "profile": prof,
+        "card": smi,
+    }
+    emit(rec)
+    return rec
+
+
+def phase_cli(smi: str) -> dict:
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.apps.train_single_node import main as cli_main
+    from tneq_tpu_torch.ops import transfer_step as ts
+
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = cli_main(["--steps", str(CLI_STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ts.launch_counts()
+    with contextlib.redirect_stdout(sys.stderr):
+        host = cli_main(["--steps", str(CHECK_STEPS), "--device", "cpu"])
+    losses = np.array(stats.losses)
+    check(bool(np.isfinite(losses).all()), "cli: non-finite loss")
+    per_step = 2 * MIDDLE_STEPS
+    check(counts["transfer_step_complex"] == per_step * CLI_STEPS
+          and counts["transfer_step"] == 0,
+          f"cli launch counts {counts}, expected B4 = {per_step * CLI_STEPS}, B3 = 0")
+    rel = [abs(c - h) / abs(h) for c, h in zip(stats.losses, host.losses)]
+    check(max(rel) <= TOL_STEP0, f"cli: first {CHECK_STEPS} losses card vs host, rel {max(rel)}")
+    clip = float(-np.log(np.float32(1e-10)))
+    rec = {
+        "phase": "cli",
+        "program": "apps.train_single_node.main defaults: mps 8 qubits, dim 3, "
+                   "complex64, batch 32 x 4 batches, sgdg lr 1e-2 momentum 0.9",
+        "steps": CLI_STEPS,
+        "seconds": dt,
+        "steps_per_s": CLI_STEPS / dt,
+        "losses_every_10": [float(x) for x in losses[::10]],
+        "loss_last": float(losses[-1]),
+        "share_at_clip": float(np.isclose(losses, clip, rtol=1e-6).mean()),
+        "host_rel_err_max": max(rel),
+        "launches": counts,
+        "launches_per_step": {k: v / CLI_STEPS for k, v in counts.items()},
+        "card": smi,
+    }
+    emit(rec)
+    return rec
+
+
+def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
     rows = []
-    for name, meta in _KERNELS.items():
+    for name in ("chain_sweep_fwd", "chain_sweep_bwd"):
+        meta = _KERNELS[name]
         rows.append({
             "name": name,
             "id": meta["id"],
@@ -433,6 +694,7 @@ def kernels_line(kern: dict, bench: dict) -> dict:
             "source": "tneq_tpu_torch/csrc/chain_sweep.cu",
             "replaces": meta["replaces"],
             "launches": bench["launches"][name],
+            "launches_per_step": bench["launches_per_step"][name],
             "max_abs_err": main_case["max_abs_err"][name],
             "ms": main_case["times"][name]["ms"],
             "plain_ms": main_case["times"][name]["plain_ms"],
@@ -440,6 +702,30 @@ def kernels_line(kern: dict, bench: dict) -> dict:
             "bound_by": main_case["bounds"][name]["bound_by"],
             "library_ms": None,
             "shape": {"n": main_case["n"], "S": main_case["S"]},
+        })
+    for name, run, shape in (("transfer_step", born, BORN_SHAPE),
+                             ("transfer_step_complex", cli, CLI_SHAPE)):
+        meta = _KERNELS[name]
+        case = next(c for c in transfer["cases"]
+                    if c["kernel"] == name and (c["B"], c["D"], c["K"]) == shape)
+        rows.append({
+            "name": name,
+            "id": meta["id"],
+            "route": "cuda",
+            "source": "tneq_tpu_torch/csrc/transfer_step.cu",
+            "replaces": meta["replaces"],
+            "launches": run["launches"][name],
+            "launches_per_step": run["launches_per_step"][name],
+            "max_abs_err": case["max_abs_err"],
+            "ms": case["ms"],
+            "plain_ms": case["plain_ms"],
+            "bound_ms": case["bound_ms"],
+            "bound_by": case["bound_by"],
+            "library_ms": case["library_ms"],
+            "device_ms": case["device_ms"],
+            "plain_device_ms": case["plain_device_ms"],
+            "library_device_ms": case["library_device_ms"],
+            "shape": {"B": shape[0], "D": shape[1], "K": shape[2]},
         })
     return {"kernels": rows}
 
@@ -461,10 +747,13 @@ def main() -> int:
         kern = phase_kernels()
         bench = phase_bench(setup["nvidia_smi"])
         phase_experiment()
+        transfer = phase_transfer_kernels()
+        born = phase_born_rule(setup["nvidia_smi"])
+        cli = phase_cli(setup["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    emit(kernels_line(kern, bench))
+    emit(kernels_line(kern, bench, transfer, born, cli))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,5 @@
-"""The sweep kernels B1/B2 on the card against their plain versions.
+"""The sweep kernels B1/B2 and the transfer-step kernels B3/B4 on the card
+against their plain versions.
 
 These tests need a CUDA card and skip without one; they import no JAX, so
 they run on the machine with the card with the repository's conftest left
@@ -6,8 +7,9 @@ out::
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
-f32 tolerance: max|kernel - plain| / max|plain| <= 5e-5 per output (the two
-sum in different orders; measured near 1e-6 on an H100).
+f32 tolerance: max|kernel - plain| / max|plain| <= 5e-5 per output for
+B1/B2 and 2e-5 for B3/B4 (the two sum in different orders; measured near
+1e-6 on an H100).
 """
 
 import numpy as np
@@ -76,3 +78,76 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         co._sweep_fwd_cuda(u0.cpu(), M, w)
     with pytest.raises(ValueError, match="contiguous"):
         co._sweep_fwd_cuda(u0, M.transpose(1, 2), w)
+
+
+# ---------------------------------------------------------------------------
+# B3/B4: the transfer step (csrc/transfer_step.cu)
+# ---------------------------------------------------------------------------
+
+from tneq_tpu_torch.ops import transfer_step as ts  # noqa: E402
+
+TOL_STEP = 2e-5  # max|kernel - plain| / max|plain|: the same f32 sums in another order
+
+
+def _step_inputs(B, Da, K, Dc, complex_, dev, seed=0):
+    rng = np.random.default_rng(seed)
+
+    def mk(shape):
+        x = rng.standard_normal(shape)
+        if complex_:
+            x = x + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(x.astype(np.complex64 if complex_ else np.float32), device=dev)
+
+    return mk((B, Da, Da)), mk((Da, K, Dc)), mk((B, K, K))
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("B,Da,K,Dc", [
+    (130, 3, 2, 3), (32, 3, 3, 3), (512, 8, 4, 8), (7, 3, 2, 5),
+    (3, 40, 8, 40),  # one entry's intermediates outgrow shared memory: column strips
+])
+def test_transfer_kernels_match_plain_versions(dev, complex_, B, Da, K, Dc):
+    env, a, mx = _step_inputs(B, Da, K, Dc, complex_, dev)
+    plain = ts.transfer_step_complex_plain if complex_ else ts.transfer_step_plain
+    assert _rel(ts._launch(env, a, mx, complex_), plain(env, a, mx)) <= TOL_STEP
+    # the backward's d_env: the same kernel on the transposed core
+    g = _step_inputs(B, Dc, K, Dc, complex_, dev, seed=1)[0]
+    a_t = (a.conj() if complex_ else a).permute(2, 1, 0).contiguous()
+    m_t = mx.conj().resolve_conj() if complex_ else mx
+    assert _rel(ts._launch(g, a_t, m_t, complex_), plain(g, a_t, m_t)) <= TOL_STEP
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_transfer_autograd_on_the_card_matches_the_host(dev, complex_):
+    env, a, mx = _step_inputs(64, 8, 4, 8, complex_, dev)
+    fn = ts.transfer_step_complex if complex_ else ts.transfer_step
+    name = "transfer_step_complex" if complex_ else "transfer_step"
+    results = []
+    for where in ("cuda", "cpu"):
+        leaves = [x.to(where).clone().requires_grad_(True) for x in (env, a, mx)]
+        ts.reset_launch_counts()
+        out = fn(*leaves)
+        (out.abs() ** 2).sum().backward()
+        # forward + d_env on the card, nothing on the host
+        assert ts.launch_counts()[name] == (2 if where == "cuda" else 0)
+        results.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for c, h in zip(*results):
+        assert _rel(c, h) <= 1e-5
+
+
+def test_transfer_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    env, a, mx = _step_inputs(8, 3, 2, 3, False, dev)
+    with pytest.raises(ValueError, match="float32"):
+        ts._launch(env.double(), a.double(), mx.double(), False)
+    with pytest.raises(ValueError, match="is on"):
+        ts._launch(env, a.cpu(), mx, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        ts._launch(env.transpose(1, 2), a, mx, False)
+    with pytest.raises(ValueError, match="shape"):
+        ts._launch(env[:, :2, :2].contiguous(), a, mx, False)
+    big = _step_inputs(2, 64, 8, 64, True, dev)
+    with pytest.raises(ValueError, match="does not fit"):
+        ts.transfer_step_complex(*big)
+    with pytest.raises(ValueError, match="float32"):
+        ts.transfer_step(env.double(), a.double(), mx.double())

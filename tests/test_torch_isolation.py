@@ -52,6 +52,11 @@ def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         p = init_params(g, 0, torch.float32)
         assert all(v.is_cuda for v in p.values())
+        from tneq_tpu_torch.model.qctn import QCTN
+        from tneq_tpu_torch.train.trainer import Trainer
+
+        assert Trainer(g).device.type == "cuda"
+        assert all(v.is_cuda for v in QCTN(mps_graph(4, dim=2)).params.values())
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(g, 0, torch.float32)
@@ -64,6 +69,16 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError):
         make_experiment(SymmetryBreakingConfig(topology="mps", fidelity_mode="network"))
+    from tneq_tpu_torch.apps.train_single_node import main
+    from tneq_tpu_torch.model.qctn import QCTN
+    from tneq_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        QCTN(mps_graph(4, dim=2))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["--steps", "1"])
 
 
 def test_cpu_on_request():

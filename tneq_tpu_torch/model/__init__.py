@@ -1,3 +1,3 @@
-from .qctn import init_params, orthogonal_core, params_from_numpy, params_to_numpy
+from .qctn import QCTN, init_params, orthogonal_core, params_from_numpy, params_to_numpy
 
-__all__ = ["init_params", "orthogonal_core", "params_from_numpy", "params_to_numpy"]
+__all__ = ["QCTN", "init_params", "orthogonal_core", "params_from_numpy", "params_to_numpy"]

@@ -1,7 +1,8 @@
-"""Core initialisation and the numpy bridge for parameter dicts.
+"""Core initialisation, the numpy bridge for parameter dicts, and the
+``QCTN`` wrapper.
 
-Counterpart of ``tneq_tpu/model/qctn.py`` (``orthogonal_core`` and
-``init_params``).  Parameters are plain ``{core_name: Tensor}`` dicts with
+Counterpart of ``tneq_tpu/model/qctn.py`` (``orthogonal_core``,
+``init_params``, ``QCTN``).  Parameters are plain ``{core_name: Tensor}`` dicts with
 the JAX package's axis order (``graph/dsl.py``: in-edges, then out-edges,
 by ascending qubit), so the same numpy dict feeds both packages through
 :func:`params_from_numpy` / :func:`params_to_numpy`.
@@ -15,15 +16,17 @@ every device.
 
 from __future__ import annotations
 
+import warnings
 from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..graph.dsl import CircuitGraph
+from ..graph.dsl import CircuitGraph, parse_graph
 from ..utils.device import DeviceLike, resolve_device
 
 __all__ = [
+    "QCTN",
     "init_params",
     "orthogonal_core",
     "params_from_numpy",
@@ -105,3 +108,108 @@ def params_from_numpy(
 def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """``{name: Tensor}`` -> ``{name: ndarray}`` (detached, on the host)."""
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
+
+
+_CHECKPOINTS = (
+    "safetensors checkpoints wait for the port's checkpoint I/O "
+    "(ROADMAP A, item 2): the machine with the card has no safetensors"
+)
+
+
+class QCTN:
+    """Quantum Circuit Tensor Network: immutable graph + parameter dict.
+
+    Counterpart of the JAX ``QCTN``: JAX's ``key=`` becomes an integer
+    ``seed`` (drawn with :func:`init_params`), plus ``device=``.  The
+    surgery methods (``split``, ``merge_with``) wait for
+    ``graph/surgery.py``; the contraction conveniences for
+    ``ops/contract.py`` (ROADMAP A, item 7).
+    """
+
+    def __init__(
+        self,
+        graph: Union[str, CircuitGraph],
+        params: Optional[Mapping[str, torch.Tensor]] = None,
+        *,
+        seed: int = 0,
+        dtype: torch.dtype = torch.complex64,
+        device: DeviceLike = "cuda",
+    ):
+        self.graph = parse_graph(graph) if isinstance(graph, str) else graph
+        self.dtype = dtype
+        self.device = resolve_device(device)
+        if params is None:
+            params = init_params(self.graph, seed, dtype, self.device)
+        self.params: Params = dict(params)
+
+    # -- views ------------------------------------------------------------
+
+    @property
+    def nqubits(self) -> int:
+        return self.graph.nqubits
+
+    @property
+    def ncores(self) -> int:
+        return self.graph.ncores
+
+    @property
+    def cores(self):
+        return self.graph.core_names
+
+    def __repr__(self):
+        return (
+            f"QCTN(nqubits={self.nqubits}, ncores={self.ncores}, "
+            f"cores={list(self.cores)}, dtype={str(self.dtype).split('.')[-1]})"
+        )
+
+    def copy(self) -> "QCTN":
+        return QCTN(self.graph, dict(self.params), dtype=self.dtype, device=self.device)
+
+    # -- weight assignment --------------------------------------------------
+
+    def set_cores(self, cores, strict: bool = True) -> None:
+        """Set weights from a list (positional) or dict (by name).  A tensor
+        of the core's element count but another shape is reshaped."""
+        if isinstance(cores, (list, tuple)):
+            if strict and len(cores) != self.ncores:
+                raise ValueError(
+                    f"strict: expected {self.ncores} tensors, got {len(cores)}"
+                )
+            n = min(len(cores), self.ncores)
+            if len(cores) != self.ncores:
+                warnings.warn(
+                    f"setting only the first {n} of {self.ncores} cores",
+                    stacklevel=2,
+                )
+            for i in range(n):
+                self._set_one(self.cores[i], cores[i])
+        elif isinstance(cores, dict):
+            given, mine = set(cores), set(self.cores)
+            if strict and given != mine:
+                raise ValueError(
+                    f"strict: key mismatch — missing {mine - given}, "
+                    f"extra {given - mine}"
+                )
+            for extra in given - mine:
+                warnings.warn(f"ignoring extra core {extra!r}", stacklevel=2)
+            for name in mine & given:
+                self._set_one(name, cores[name])
+        else:
+            raise TypeError(f"cores must be list or dict, got {type(cores).__name__}")
+
+    def _set_one(self, name: str, tensor) -> None:
+        target_shape = self.graph.shapes[name]
+        arr = torch.as_tensor(tensor)
+        if arr.numel() != int(np.prod(target_shape, dtype=np.int64)):
+            raise ValueError(
+                f"core {name!r}: size mismatch {tuple(arr.shape)} vs {target_shape}"
+            )
+        self.params[name] = arr.reshape(target_shape).to(dtype=self.dtype, device=self.device)
+
+    # -- checkpoint I/O -----------------------------------------------------
+
+    def save_cores(self, file_path, metadata=None) -> None:
+        raise NotImplementedError(_CHECKPOINTS)
+
+    def load_cores(self, file_path, strict: bool = True):
+        raise NotImplementedError(_CHECKPOINTS)

@@ -5,7 +5,10 @@ from .chain_overlap import (
     mv_chain_log_overlap,
     mv_chain_log_overlap_cuda,
 )
-from .mps_sweep import is_mps_chain
+from .compiler import compile_siamese
+from .contract import abs_square
+from .features import generate_data, hermite_phi, hermite_weights, measurement_matrices
+from .mps_sweep import is_mps_chain, mps_sweep_siamese_fn
 from .scaling import Scaled, auto_scale
 
 __all__ = [
@@ -14,7 +17,14 @@ __all__ = [
     "fused_chain_supported",
     "mv_chain_log_overlap",
     "mv_chain_log_overlap_cuda",
+    "compile_siamese",
+    "abs_square",
+    "generate_data",
+    "hermite_phi",
+    "hermite_weights",
+    "measurement_matrices",
     "is_mps_chain",
+    "mps_sweep_siamese_fn",
     "Scaled",
     "auto_scale",
 ]

@@ -1,12 +1,27 @@
-"""MPS-chain topology check.  Counterpart of ``tneq_tpu/ops/mps_sweep.py``
-(``is_mps_chain``); the siamese transfer sweep (kernels B3/B4) waits for the
-Born-rule slice."""
+"""MPS transfer-matrix sweep: the siamese Born-rule contraction on chains.
+
+Counterpart of ``tneq_tpu/ops/mps_sweep.py``: absorb the input states into
+the cores, then sweep left to right carrying the boundary environment
+``env[z, a, b]`` (batch, ket bond, bra bond) through the transfer step
+``zab,akc,zkl,bld->zcd``.  Valid for the chains of ``mps_graph`` (core i on
+qubits (i, i+1)); :func:`is_mps_chain` checks that.
+
+Why the kernel is the default here while JAX's ``use_pallas`` defaults to
+False: XLA fuses JAX's einsum step into one compiled program, while eager
+PyTorch runs ``torch.einsum`` as a chain of separate launches with
+``[B, D, K, D]`` intermediates in device memory; the kernels B3/B4
+(``ops/transfer_step.py``) do one step in one launch.
+"""
 
 from __future__ import annotations
 
-from ..graph.dsl import CircuitGraph
+import torch
+from torch.utils.checkpoint import checkpoint
 
-__all__ = ["is_mps_chain"]
+from ..graph.dsl import CircuitGraph
+from .transfer_step import transfer_step, transfer_step_complex
+
+__all__ = ["is_mps_chain", "mps_sweep_siamese_fn"]
 
 
 def is_mps_chain(graph: CircuitGraph) -> bool:
@@ -27,3 +42,72 @@ def is_mps_chain(graph: CircuitGraph) -> bool:
             if e.neighbor not in (-1, i + 1):
                 return False
     return True
+
+
+def _einsum_step(env, a, mx, conj):
+    return torch.einsum("zab,akc,zkl,bld->zcd", env, a, mx, conj(a))
+
+
+def _kernel_step(env, a, mx, conj):
+    if env.is_complex() or a.is_complex():
+        c64 = torch.complex64
+        out = transfer_step_complex(env.to(c64), a.to(c64), mx.to(c64))
+        return out.to(env.dtype)  # complex128 sweeps carry on promoted, as in JAX
+    return transfer_step(env, a, mx)
+
+
+def mps_sweep_siamese_fn(
+    graph: CircuitGraph,
+    conj_right: bool = True,
+    use_kernel: bool = True,
+    remat: bool = False,
+):
+    """``fn(params, states, measures) -> [B]`` siamese values (chain only).
+
+    ``states``: per-qubit ``(rank,)`` vectors; ``measures``: per-qubit
+    ``(B, K, K)`` operators.  ``use_kernel`` (JAX's ``use_pallas``) runs
+    the middle transfer steps through B3/B4 (complex inputs are cast to
+    complex64 first); otherwise one ``torch.einsum`` per step.  ``remat``
+    recomputes each middle step in the backward
+    (``torch.utils.checkpoint``) instead of storing its intermediates.
+    JAX's ``lax.scan`` over uniform middle cores is a host loop here.
+    Unlike ``jnp.einsum``, ``torch.einsum`` does not promote: cores, states
+    and measures share one dtype.
+    """
+    if not is_mps_chain(graph):
+        raise ValueError("graph is not an MPS chain; use make_siamese_fn")
+    if use_kernel and not conj_right:
+        raise ValueError("use_kernel implies the Born-rule conjugated bra")
+    m = graph.ncores
+    names = graph.core_names
+    step = _kernel_step if use_kernel else _einsum_step
+
+    def fn(params, states, measures):
+        conj = torch.conj if conj_right else (lambda x: x)
+        params = [params[n] for n in names]
+
+        # core layouts (in-edges by qubit, then out-edges by qubit):
+        #   c_0: [s_0, s_1, o_0, b_0]; c_i: [b_{i-1}, s_{i+1}, o_i, b_i];
+        #   c_last: [b_{m-2}, s_m, o_{m-1}, o_m]; m == 1: [s_0, s_1, o_0, o_1]
+        if m == 1:
+            a = torch.einsum("stkl,s,t->kl", params[0], states[0], states[1])
+            return torch.einsum(
+                "kl,zkK,zlL,KL->z", a, measures[0], measures[1], conj(a)
+            )
+
+        a0 = torch.einsum("stkc,s,t->kc", params[0], states[0], states[1])
+        env = torch.einsum("kc,zkl,ld->zcd", a0, measures[0], conj(a0))
+        for i in range(1, m - 1):
+            a = torch.einsum("askc,s->akc", params[i], states[i + 1])
+            if remat:
+                env = checkpoint(step, env, a, measures[i], conj, use_reentrant=False)
+            else:
+                env = step(env, a, measures[i], conj)
+
+        a_last = torch.einsum("askl,s->akl", params[m - 1], states[m])
+        return torch.einsum(
+            "zab,akl,zkK,zlL,bKL->z",
+            env, a_last, measures[m - 1], measures[m], conj(a_last),
+        )
+
+    return fn
