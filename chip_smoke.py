@@ -8,9 +8,12 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
 
 1. setup — the card's name and power limit (``nvidia-smi``), the kernels
    built from ``tneq_tpu_torch/csrc`` with ``nvcc`` (build time), TF32 off;
-2. kernels — B1/B2 (``csrc/chain_sweep.cu``) against their plain PyTorch
-   versions on the card at n = 29 sites, S in {9, 256, 1024}, with the
-   tolerances stated below, and their times (CUDA events, median);
+2. kernels — B1/B2 (``csrc/chain_sweep.cu``, thread-block-cluster
+   kernels) against their plain PyTorch versions on the card at n = 29
+   sites, S in {9, 256, 1024}, with the tolerances stated below; their
+   times (CUDA events around one call, median, and the card's own time from
+   torch.profiler, also per site), their launch plans (cluster size,
+   shared memory) and bounds;
 3. bench — the ``bench.py`` training program on the port: 32-qubit, bond-16
    MPS, float32, plain SGD lr 1e-3 on −log F, 200 steps; step-0 loss against
    the port's plain path on the host, falling loss, launch counts
@@ -143,13 +146,16 @@ def device_ms(fn, reps: int = 20):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total = sum(ev.device_time_total for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA)
-    return total / 1e3 / reps if total else None
+    for _ in range(3):  # a trace now and then comes back without device events
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total = sum(ev.device_time_total for ev in prof.key_averages()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA)
+        if total:
+            return total / 1e3 / reps
+    return None
 
 
 def _bound(nbytes: float, flops: float) -> dict:
@@ -266,19 +272,29 @@ def phase_kernels() -> dict:
         err["du0"] = rel_err(kb[1], pb[1])
         abs_fwd = max(float((k - p).abs().max()) for k, p in zip(kf, pf))
         abs_bwd = max(float((k - p).abs().max()) for k, p in zip(kb, pb))
-        times = {
-            "chain_sweep_fwd": {
-                "ms": cuda_ms(lambda: co._sweep_fwd_cuda(u0, M, w)),
-                "plain_ms": cuda_ms(lambda: co._sweep_fwd_plain(u0, M, w)),
-            },
-            "chain_sweep_bwd": {
-                "ms": cuda_ms(lambda: co._sweep_bwd_cuda(r0, M, pf[0], pf[1])),
-                "plain_ms": cuda_ms(lambda: co._sweep_bwd_plain(r0, M, pf[0], pf[1])),
-            },
+        calls = {
+            "chain_sweep_fwd": (lambda: co._sweep_fwd_cuda(u0, M, w),
+                                lambda: co._sweep_fwd_plain(u0, M, w)),
+            "chain_sweep_bwd": (lambda: co._sweep_bwd_cuda(r0, M, pf[0], pf[1]),
+                                lambda: co._sweep_bwd_plain(r0, M, pf[0], pf[1])),
         }
+        times, plans = {}, {}
+        for name, (kernel, plain) in calls.items():
+            dms = device_ms(kernel)
+            times[name] = {
+                "ms": cuda_ms(kernel),
+                "device_ms": dms,
+                "per_site_device_ms": dms / SWEEP_N if dms else None,
+                "plain_ms": cuda_ms(plain),
+                "plain_device_ms": device_ms(plain),
+            }
+            cluster, strip, stages, tile_rows, smem = co._plan_for(
+                M, backward=name == "chain_sweep_bwd")
+            plans[name] = {"cluster": cluster, "strip": strip, "ring_stages": stages,
+                           "tile_rows": tile_rows, "smem_bytes": smem}
         case = {"n": SWEEP_N, "S": S, "rel_err": err,
                 "max_abs_err": {"chain_sweep_fwd": abs_fwd, "chain_sweep_bwd": abs_bwd},
-                "times": times, "bounds": sweep_bounds(SWEEP_N, S)}
+                "times": times, "plans": plans, "bounds": sweep_bounds(SWEEP_N, S)}
         cases.append(case)
         bad = {k: v for k, v in err.items() if not v <= TOL_KERNEL}
         check(not bad, f"S={S}: kernel disagrees with plain version beyond "
@@ -701,6 +717,9 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict)
             "bound_ms": main_case["bounds"][name]["bound_ms"],
             "bound_by": main_case["bounds"][name]["bound_by"],
             "library_ms": None,
+            "device_ms": main_case["times"][name]["device_ms"],
+            "plain_device_ms": main_case["times"][name]["plain_device_ms"],
+            "cluster": main_case["plans"][name]["cluster"],
             "shape": {"n": main_case["n"], "S": main_case["S"]},
         })
     for name, run, shape in (("transfer_step", born, BORN_SHAPE),

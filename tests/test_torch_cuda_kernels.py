@@ -42,17 +42,44 @@ def _rel(k, p):
     return float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("S", [1, 9, 130, 256, 1024])
-def test_kernels_match_plain_versions(dev, S):
-    u0, M, w = _inputs(7, S, S, dev)
+def _poison(shape, dev):
+    """Leave a NaN-filled block of ``shape`` in the caching allocator, so the
+    next ``torch.empty`` of that shape shows any cell a kernel leaves unwritten."""
+    junk = torch.full(shape, float("nan"), device=dev)
+    del junk
+
+
+# n = 1 and 2 leave the ring deeper than the chain; n = 29 wraps it.  S = 1
+# and 9 run as one CTA, 130 as a ragged cluster, 256 and 576 as 16 CTAs with
+# whole sites per tile, 1024 with row tiles.
+@pytest.mark.parametrize("n", [1, 2, 29])
+@pytest.mark.parametrize("S", [1, 9, 130, 256, 576, 1024])
+def test_kernels_match_plain_versions(dev, n, S):
+    u0, M, w = _inputs(n, S, S + n, dev)
+    _poison((n, S), dev)
     kf, pf = co._sweep_fwd_cuda(u0, M, w), co._sweep_fwd_plain(u0, M, w)
     for name, k, p in zip(("ustack", "scales", "f", "logsum", "ulast"), kf, pf):
         assert _rel(k, p) <= TOL or float((k - p).abs().max()) <= 1e-6, name
+    _poison((n, S, S), dev)
     kb = co._sweep_bwd_cuda(w, M, pf[0], pf[1])
     pb = co._sweep_bwd_plain(w, M, pf[0], pf[1])
+    assert bool(torch.isfinite(kb[0]).all()), "B2 left a cell of dM unwritten"
     for name, k, p in zip(("dM", "du0"), kb, pb):
         assert _rel(k, p) <= TOL, name
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("S", [9, 256, 1024])
+def test_nan_in_M_reaches_the_scales(dev, S):
+    n, site = 6, 2
+    u0, M, w = _inputs(n, S, 3, dev)
+    M[site, S // 2, S // 3] = float("nan")
+    kf, pf = co._sweep_fwd_cuda(u0, M, w), co._sweep_fwd_plain(u0, M, w)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(pf[1][site:]).all())  # the plain version's rule
+    assert bool(torch.isnan(kf[1][site:]).all())
+    assert _rel(kf[1][:site], pf[1][:site]) <= TOL
+    assert bool(torch.isnan(kf[3]))  # logsum
 
 
 def test_autograd_on_the_card_matches_the_host(dev):

@@ -9,8 +9,11 @@ Counterpart of ``tneq_tpu/ops/chain_overlap.py``.  The chain log-overlap of
 2. **The sweep** ``log |v0 . (prod_i M_i) . w|`` with per-site max-abs
    rescaling, as the hand-written Hopper kernels of ``csrc/chain_sweep.cu``:
    B1 (forward: prefix stack, scales, f = u_n . w, sum log s_i) and B2 (the
-   exact VJP with the scales held constant), wrapped as the
+   exact VJP with the scales held constant, dM fused), wrapped as the
    ``torch.autograd.Function`` behind :func:`mv_chain_log_overlap_cuda`.
+   Each runs as one thread-block cluster that prefetches M through shared
+   memory and exchanges the carry over distributed shared memory; its
+   launch parameters come from :func:`sweep_plan`.
 
 Each kernel has a plain PyTorch version beside it (:func:`_sweep_fwd_plain`,
 :func:`_sweep_bwd_plain`) with the same outputs.  The dispatch sends a CPU
@@ -46,10 +49,20 @@ __all__ = [
     "fused_chain_supported",
     "launch_counts",
     "reset_launch_counts",
+    "sweep_plan",
 ]
 
 _TINY = 1e-30
 MAX_S = 1024  # JAX's cap (chain_overlap.py:340-341); the kernels take any S up to it
+
+# The sweep kernels' launch plan (csrc/chain_sweep.cu, which checks it)
+THREADS = 256  # threads per CTA (kThreads)
+MAX_CLUSTER = 16  # CTAs in a cluster where the card schedules it (non-portable)
+PORTABLE_CLUSTER = 8  # the portable limit, used where 16 is not schedulable
+SMEM_MAX = 232448  # shared memory one CTA may use on an H100
+MAX_STAGES = 16  # ring stages (kMaxStages)
+MIN_STRIP_WORK = 4096  # floats of M a CTA takes per site, at least
+BAR_FLOATS = 8  # the mbarriers at the head of shared memory (kBarFloats)
 
 # launches of each kernel, counted by the wrappers where they launch
 _LAUNCHES: Dict[str, int] = {"chain_sweep_fwd": 0, "chain_sweep_bwd": 0}
@@ -153,20 +166,102 @@ def _sweep_shapes(M: torch.Tensor) -> Tuple[int, int]:
     return n, S
 
 
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def tile_pitch(strip: int) -> int:
+    """B1's ring tile row pitch in floats: the strip rounded up to float4s,
+    made an odd number of float4s so that a warp's float4 reads of 8
+    consecutive rows fall in 8 different bank groups (``tile_pitch`` in
+    ``csrc/chain_sweep.cu``)."""
+    quads = _ceil(strip, 4)
+    return 4 * (quads if quads % 2 else quads + 1)
+
+
+def sweep_plan(n: int, S: int, backward: bool = False,
+               max_cluster: int = MAX_CLUSTER) -> Tuple[int, int, int, int, int]:
+    """``(cluster, strip, ring_stages, tile_rows, smem_bytes)`` of one B1
+    (``backward=False``) or B2 launch, decided by shape and the card's
+    cluster limit alone.
+
+    One cluster of ``cluster`` CTAs walks the n sites; CTA c owns the strip
+    ``[c*strip, (c+1)*strip)`` of every M_i: columns for B1, rows for B2.
+    The strip gives each CTA at least :data:`MIN_STRIP_WORK` floats per site
+    (small S runs as fewer CTAs, S <= 64 as one), is a multiple of 4 where
+    S is (16-byte copies), and no CTA is left empty; the last strip may be
+    ragged.  A CTA's share of a site is cut into as few tiles of
+    ``tile_rows`` rows as leave room for two of them (a row is
+    :func:`tile_pitch` floats for B1; ``S`` for B2, whose stage also
+    carries the tile's entries of ustack): each tile costs the sweep's
+    critical path a fixed latency.  The tiles are prefetched through a ring
+    of ``ring_stages`` of them that fills the shared memory left by the
+    exchange buffers, never past the n sites' tiles."""
+    if n < 1 or not 1 <= S <= MAX_S:
+        raise ValueError(f"the sweep kernels take n >= 1 and 1 <= S <= {MAX_S}, got n={n}, S={S}")
+    if not 1 <= max_cluster <= MAX_CLUSTER:
+        raise ValueError(f"max_cluster must be in [1, {MAX_CLUSTER}], got {max_cluster}")
+    strip = min(S, max(_ceil(S, max_cluster), _ceil(MIN_STRIP_WORK, S)))
+    if S % 4 == 0:
+        strip = 4 * _ceil(strip, 4)
+    cluster = _ceil(S, strip)
+    if backward:  # mbarriers, ring, draws [3][S]
+        row, rows_per_site, fixed = S, strip, BAR_FLOATS + 3 * S
+    else:  # mbarriers, ring, exchange [2][S]
+        row, rows_per_site, fixed = tile_pitch(strip), S, BAR_FLOATS + 2 * S
+    budget = SMEM_MAX // 4 - fixed
+
+    def stage_floats(rows: int) -> int:
+        return rows * row + (4 * _ceil(rows, 4) if backward else 0)
+
+    tiles_per_site = 1
+    while 2 * stage_floats(_ceil(rows_per_site, tiles_per_site)) > budget:
+        tiles_per_site += 1
+    tile_rows = _ceil(rows_per_site, tiles_per_site)
+    stages = min(MAX_STAGES, n * tiles_per_site, budget // stage_floats(tile_rows))
+    return cluster, strip, stages, tile_rows, 4 * (stages * stage_floats(tile_rows) + fixed)
+
+
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+_P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+# the C entry points' parameters; each returns a CUDA error code (int)
+_SIGNATURES = {
+    "tneq_chain_sweep_max_cluster": [_I, ctypes.POINTER(_I)],
+    # device, u0, M, w, n, S, plan (5), ustack, scales, f, logsum, ulast, stream
+    "tneq_chain_sweep_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _Z, _P, _P, _P, _P, _P, _P],
+    # device, r0, M, ustack, scales, n, S, plan (5), dM, du0, stream
+    "tneq_chain_sweep_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _Z, _P, _P, _P],
+}
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     """The chain-sweep library with its C signatures declared."""
     lib = cuda_build.library("chain_sweep")
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.tneq_chain_sweep_fwd.argtypes = [I, P, P, P, I, I, P, P, P, P, P, P]
-    lib.tneq_chain_sweep_fwd.restype = I
-    lib.tneq_chain_sweep_bwd.argtypes = [I, P, P, P, P, I, I, P, P, P, P]
-    lib.tneq_chain_sweep_bwd.restype = I
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
     return lib
+
+
+@functools.cache
+def _max_cluster(device_index: int) -> int:
+    """16 where the card schedules clusters of 16 CTAs at the most shared
+    memory a plan asks for, else the portable 8 (asked once per card)."""
+    out = ctypes.c_int(0)
+    err = _lib().tneq_chain_sweep_max_cluster(device_index, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"chain_sweep cluster query failed: CUDA error {err}")
+    return out.value
+
+
+def _plan_for(M: torch.Tensor, backward: bool) -> Tuple[int, int, int, int, int]:
+    n, S = _sweep_shapes(M)
+    return sweep_plan(n, S, backward, _max_cluster(M.device.index))
 
 
 def _sweep_fwd_cuda(u0, M, w):
@@ -176,6 +271,7 @@ def _sweep_fwd_cuda(u0, M, w):
     _check("u0", u0, (S,), dev)
     _check("M", M, (n, S, S), dev)
     _check("w", w, (S,), dev)
+    plan = _plan_for(M, backward=False)
     ustack = torch.empty((n, S), dtype=torch.float32, device=dev)
     scales = torch.empty((n,), dtype=torch.float32, device=dev)
     f = torch.empty((), dtype=torch.float32, device=dev)
@@ -183,7 +279,7 @@ def _sweep_fwd_cuda(u0, M, w):
     ulast = torch.empty((S,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tneq_chain_sweep_fwd(
-        dev.index, _ptr(u0), _ptr(M), _ptr(w), n, S, _ptr(ustack),
+        dev.index, _ptr(u0), _ptr(M), _ptr(w), n, S, *plan, _ptr(ustack),
         _ptr(scales), _ptr(f), _ptr(logsum), _ptr(ulast),
         ctypes.c_void_p(stream),
     )
@@ -194,21 +290,21 @@ def _sweep_fwd_cuda(u0, M, w):
 
 
 def _sweep_bwd_cuda(r0, M, ustack, scales):
-    """Launch B2 (reverse sweep + outer-product pass); same outputs as the
-    plain version."""
+    """Launch B2 (reverse sweep with the outer products fused); same outputs
+    as the plain version."""
     n, S = _sweep_shapes(M)
     dev = M.device
     _check("r0", r0, (S,), dev)
     _check("M", M, (n, S, S), dev)
     _check("ustack", ustack, (n, S), dev)
     _check("scales", scales, (n,), dev)
-    draws = torch.empty((n, S), dtype=torch.float32, device=dev)
+    plan = _plan_for(M, backward=True)
     dM = torch.empty((n, S, S), dtype=torch.float32, device=dev)
     du0 = torch.empty((S,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tneq_chain_sweep_bwd(
-        dev.index, _ptr(r0), _ptr(M), _ptr(ustack), _ptr(scales), n, S,
-        _ptr(draws), _ptr(dM), _ptr(du0), ctypes.c_void_p(stream),
+        dev.index, _ptr(r0), _ptr(M), _ptr(ustack), _ptr(scales), n, S, *plan,
+        _ptr(dM), _ptr(du0), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"chain_sweep_bwd (B2) launch failed: CUDA error {err}")
