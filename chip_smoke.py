@@ -21,19 +21,21 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
 4. experiment — the symmetry-breaking experiment, MPS topology, network
    fidelity, end to end (target → validate → prune), plus a 20-step
    validation fit held against the same fit on the host;
-5. transfer_kernels — B3 (float32) and B4 (complex64,
-   ``csrc/transfer_step.cu``) against their plain versions at (B, D, K) in
-   {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)}, forward and the
-   backward's d_env (the kernel on the transposed core), with their times
+5. transfer_kernels — the transfer-sweep kernel, B3 (float32) and B4
+   (complex64, ``csrc/transfer_step.cu``), against its plain version at
+   (B, D, K) in {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)} and
+   n in {1, 5} sites, forward and the backward's d_env chain (the same
+   kernel, sites reversed, cores transposed), with its plan, its times
    (CUDA events around one call, and the card's own time from
-   torch.profiler), those of the one ``torch.einsum`` call that computes
-   the same step, and bounds;
+   torch.profiler, also per site), the bound of the whole sweep and, at
+   n = 1, the time of the one ``torch.einsum`` call that computes a step;
 6. born_rule — the Born-rule Trainer at full width: 8 qubits, bond 8,
    Hermite order 4, batch 512, float32, SGD-G, 200 steps; the losses of the
    first 20 steps against the host's loss at the card's cores, a falling
-   loss, B3 = 10 launches per step (5 forward, 5 d_env), B4 = 0;
+   loss, B3 = 2 launches per step (one 5-site sweep forward, one d_env
+   sweep backward), B4 = 0;
 7. cli — ``apps.train_single_node.main`` at its defaults (complex64, 8
-   qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 10 launches per step,
+   qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 2 launches per step,
    finite losses, the first 20 against the same run on the host.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
@@ -63,8 +65,8 @@ SWEEP_BONDS = (3, 16, 32)  # S = 9 (ragged), 256 (bench), 1024 (the cap)
 BENCH_STEPS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-# B3/B4 against their plain versions: the same f32 sums of at most
-# D^2 K^2 = 4096 terms in another order
+# B3/B4 against their plain versions, per site: the same f32 sums of at
+# most D^2 K^2 = 4096 terms in another order
 TOL_STEP = 2e-5
 STEP_SHAPES = ((130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4))  # (B, D, K)
 BORN_SHAPE = (512, 8, 4)  # the born_rule phase's transfer steps
@@ -72,7 +74,7 @@ CLI_SHAPE = (32, 3, 3)  # the cli phase's
 BORN_STEPS = 200
 CLI_STEPS = 200
 CHECK_STEPS = 20  # card-vs-host comparisons of the two training phases
-MIDDLE_STEPS = 5  # transfer steps per sweep of an 8-qubit chain
+MIDDLE_STEPS = 5  # sites of the transfer sweep of an 8-qubit chain
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -176,13 +178,14 @@ def sweep_bounds(n: int, S: int) -> dict:
             "chain_sweep_bwd": _bound(bwd_bytes, bwd_flops)}
 
 
-def step_bound(B: int, D: int, K: int, complex_: bool) -> dict:
-    """B3/B4 at env [B,D,D], a [D,K,D], mx [B,K,K] -> [B,D,D]: bytes of
-    the inputs and the output once; flops of the factorised step,
-    2 B (2 D^3 K + D^2 K^2), four times as many for complex64."""
+def sweep_bound(n: int, B: int, D: int, K: int, complex_: bool) -> dict:
+    """B3/B4 over an n-site sweep, env0 [B,D,D], a [n,D,K,D], mx [n,B,K,K]
+    -> out [n,B,D,D]: bytes of the inputs and the outputs once; flops of
+    the factorised step, 2 B (2 D^3 K + D^2 K^2) per site, four times as
+    many for complex64."""
     elem = 8 if complex_ else 4
-    nbytes = elem * (2 * B * D * D + D * K * D + B * K * K)
-    flops = 2 * B * (2 * D ** 3 * K + D * D * K * K) * (4 if complex_ else 1)
+    nbytes = elem * (B * D * D + n * (D * K * D + B * K * K + B * D * D))
+    flops = n * 2 * B * (2 * D ** 3 * K + D * D * K * K) * (4 if complex_ else 1)
     return _bound(nbytes, flops)
 
 
@@ -502,21 +505,22 @@ def phase_experiment() -> dict:
     return rec
 
 
-def _step_inputs(B: int, D: int, K: int, complex_: bool, seed: int, dev):
-    """env [B,D,D], a [D,K,D], mx [B,K,K] from numpy, max-abs 1."""
+def _sweep_inputs(n: int, B: int, D: int, K: int, complex_: bool, seed: int, dev):
+    """env0 [B,D,D], a [n,D,K,D], mx [n,B,K,K] from numpy, max-abs 1 (a
+    scaled by 1/(D K), so the envs of a sweep stay of order one)."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
 
-    def mk(*shape):
+    def mk(*shape, scale=1.0):
         x = rng.standard_normal(shape)
         if complex_:
             x = x + 1j * rng.standard_normal(shape)
-        x = x / np.abs(x).max()
+        x = scale * x / np.abs(x).max()
         return torch.as_tensor(x.astype(np.complex64 if complex_ else np.float32), device=dev)
 
-    return mk(B, D, D), mk(D, K, D), mk(B, K, K)
+    return mk(B, D, D), mk(n, D, K, D, scale=1.0 / (D * K)), mk(n, B, K, K)
 
 
 def phase_transfer_kernels() -> dict:
@@ -527,36 +531,48 @@ def phase_transfer_kernels() -> dict:
     dev = torch.device("cuda", 0)
     cases = []
     for B, D, K in STEP_SHAPES:
-        for name, complex_ in (("transfer_step", False), ("transfer_step_complex", True)):
-            plain = ts.transfer_step_complex_plain if complex_ else ts.transfer_step_plain
-            env, a, mx = _step_inputs(B, D, K, complex_, seed=B + D, dev=dev)
-            kf, pf = ts._launch(env, a, mx, complex_), plain(env, a, mx)
-            # the backward's d_env: the same kernel on the transposed core
-            g = _step_inputs(B, D, K, complex_, seed=B + D + 1, dev=dev)[0]
-            a_t = (a.conj() if complex_ else a).permute(2, 1, 0).contiguous()
-            m_t = mx.conj().resolve_conj() if complex_ else mx
-            kb, pb = ts._launch(g, a_t, m_t, complex_), plain(g, a_t, m_t)
-            torch.cuda.synchronize()
-            err = {"fwd": rel_err(kf, pf), "d_env": rel_err(kb, pb)}
-            bra = a.conj() if complex_ else a
-            calls = {
-                "": lambda: ts._launch(env, a, mx, complex_),
-                "plain_": lambda: plain(env, a, mx),
-                "library_": lambda: torch.einsum("zab,akc,zkl,bld->zcd", env, a, mx, bra),
-            }
-            case = {
-                "kernel": name, "B": B, "D": D, "K": K,
-                "zb_ct_smem": list(ts.kernel_plan(B, D, K, D, env.dtype)),
-                "rel_err": err,
-                "max_abs_err": max(float((kf - pf).abs().max()), float((kb - pb).abs().max())),
-                **{f"{k}ms": cuda_ms(fn) for k, fn in calls.items()},
-                **{f"{k}device_ms": device_ms(fn) for k, fn in calls.items()},
-                **step_bound(B, D, K, complex_),
-            }
-            cases.append(case)
-            bad = {k: v for k, v in err.items() if not v <= TOL_STEP}
-            check(not bad, f"{name} at (B, D, K) = {(B, D, K)} disagrees with its "
-                           f"plain version beyond {TOL_STEP}: {bad}")
+        for n in (1, MIDDLE_STEPS):
+            for name, complex_ in (("transfer_step", False), ("transfer_step_complex", True)):
+                plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
+                env, a, mx = _sweep_inputs(n, B, D, K, complex_, seed=B + D + n, dev=dev)
+                g = _sweep_inputs(1, B, D, K, complex_, seed=B + D + n + 1, dev=dev)[0]
+                kf, pf = ts._launch(env, a, mx, complex_), plain(env, a, mx)
+                # the backward's d_env chain: the same kernel, sites reversed
+                kb = ts._launch(g, a, mx, complex_, backward=True)
+                pb = plain(g, a, mx, backward=True)
+                torch.cuda.synchronize()
+                err = {"fwd": max(rel_err(k, p) for k, p in zip(kf, pf)),
+                       "d_env": max(rel_err(k, p) for k, p in zip(kb, pb))}
+                calls = {
+                    "": lambda: ts._launch(env, a, mx, complex_),
+                    "bwd_": lambda: ts._launch(g, a, mx, complex_, backward=True),
+                    "plain_": lambda: plain(env, a, mx),
+                }
+                if n == 1:  # one torch.einsum computes one step
+                    bra = a[0].conj() if complex_ else a[0]
+                    calls["library_"] = lambda: torch.einsum(
+                        "zab,akc,zkl,bld->zcd", env, a[0], mx[0], bra)
+                times = {f"{k}ms": cuda_ms(fn) for k, fn in calls.items()}
+                times.update({f"{k}device_ms": device_ms(fn) for k, fn in calls.items()})
+                case = {
+                    "kernel": name, "n": n, "B": B, "D": D, "K": K,
+                    "plan": ts.kernel_plan(B, D, K, D, env.dtype, n)._asdict(),
+                    "rel_err": err,
+                    "max_abs_err": max(float((kf - pf).abs().max()),
+                                       float((kb - pb).abs().max())),
+                    **times,
+                    "library_ms": times.get("library_ms"),
+                    "library_device_ms": times.get("library_device_ms"),
+                    "per_site_device_us": (times["device_ms"] * 1e3 / n
+                                           if times["device_ms"] else None),
+                    "bwd_per_site_device_us": (times["bwd_device_ms"] * 1e3 / n
+                                               if times["bwd_device_ms"] else None),
+                    **sweep_bound(n, B, D, K, complex_),
+                }
+                cases.append(case)
+                bad = {k: v for k, v in err.items() if not v <= TOL_STEP}
+                check(not bad, f"{name} at n = {n}, (B, D, K) = {(B, D, K)} disagrees "
+                               f"with its plain version beyond {TOL_STEP}: {bad}")
     rec = {"phase": "transfer_kernels", "tolerance": TOL_STEP, "cases": cases}
     emit(rec)
     return rec
@@ -618,7 +634,7 @@ def phase_born_rule(smi: str) -> dict:
     check(bool(np.isfinite(losses).all()), "born_rule: non-finite loss")
     check(losses[-4:].mean() < losses[:4].mean(),
           f"born_rule: loss did not fall: {losses[:4].mean()} -> {losses[-4:].mean()}")
-    per_step = 2 * MIDDLE_STEPS
+    per_step = 2  # one sweep forward, one d_env sweep backward
     check(counts["transfer_step"] == per_step * BORN_STEPS
           and counts["transfer_step_complex"] == 0,
           f"born_rule launch counts {counts}, expected B3 = {per_step * BORN_STEPS}, B4 = 0")
@@ -672,7 +688,7 @@ def phase_cli(smi: str) -> dict:
         host = cli_main(["--steps", str(CHECK_STEPS), "--device", "cpu"])
     losses = np.array(stats.losses)
     check(bool(np.isfinite(losses).all()), "cli: non-finite loss")
-    per_step = 2 * MIDDLE_STEPS
+    per_step = 2  # one sweep forward, one d_env sweep backward
     check(counts["transfer_step_complex"] == per_step * CLI_STEPS
           and counts["transfer_step"] == 0,
           f"cli launch counts {counts}, expected B4 = {per_step * CLI_STEPS}, B3 = 0")
@@ -725,8 +741,11 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict)
     for name, run, shape in (("transfer_step", born, BORN_SHAPE),
                              ("transfer_step_complex", cli, CLI_SHAPE)):
         meta = _KERNELS[name]
-        case = next(c for c in transfer["cases"]
-                    if c["kernel"] == name and (c["B"], c["D"], c["K"]) == shape)
+        # the sweep as the main path launches it, and its one-site case
+        case, one = (next(c for c in transfer["cases"]
+                          if c["kernel"] == name and c["n"] == n
+                          and (c["B"], c["D"], c["K"]) == shape)
+                     for n in (MIDDLE_STEPS, 1))
         rows.append({
             "name": name,
             "id": meta["id"],
@@ -740,11 +759,18 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict)
             "plain_ms": case["plain_ms"],
             "bound_ms": case["bound_ms"],
             "bound_by": case["bound_by"],
-            "library_ms": case["library_ms"],
+            # no one PyTorch call computes a sweep of n > 1 sites; one step
+            # is one torch.einsum, timed at n = 1
+            "library_ms": None,
             "device_ms": case["device_ms"],
+            "bwd_ms": case["bwd_ms"],
+            "bwd_device_ms": case["bwd_device_ms"],
+            "per_site_device_us": case["per_site_device_us"],
             "plain_device_ms": case["plain_device_ms"],
-            "library_device_ms": case["library_device_ms"],
-            "shape": {"B": shape[0], "D": shape[1], "K": shape[2]},
+            "one_site": {k: one[k] for k in ("ms", "device_ms", "library_ms",
+                                             "library_device_ms", "bound_ms")},
+            "plan": case["plan"],
+            "shape": {"n": MIDDLE_STEPS, "B": shape[0], "D": shape[1], "K": shape[2]},
         })
     return {"kernels": rows}
 

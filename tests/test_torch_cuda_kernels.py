@@ -1,4 +1,4 @@
-"""The sweep kernels B1/B2 and the transfer-step kernels B3/B4 on the card
+"""The sweep kernels B1/B2 and the transfer-sweep kernels B3/B4 on the card
 against their plain versions.
 
 These tests need a CUDA card and skip without one; they import no JAX, so
@@ -8,8 +8,8 @@ out::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
 f32 tolerance: max|kernel - plain| / max|plain| <= 5e-5 per output for
-B1/B2 and 2e-5 for B3/B4 (the two sum in different orders; measured near
-1e-6 on an H100).
+B1/B2 and 2e-5 per site for B3/B4 (the two sum in different orders;
+measured near 1e-6 on an H100).
 """
 
 import numpy as np
@@ -43,8 +43,9 @@ def _rel(k, p):
 
 
 def _poison(shape, dev):
-    """Leave a NaN-filled block of ``shape`` in the caching allocator, so the
-    next ``torch.empty`` of that shape shows any cell a kernel leaves unwritten."""
+    """Leave a NaN-filled float32 block of ``shape`` in the caching allocator,
+    so the next ``torch.empty`` of that size shows any cell a kernel leaves
+    unwritten."""
     junk = torch.full(shape, float("nan"), device=dev)
     del junk
 
@@ -108,47 +109,85 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
-# B3/B4: the transfer step (csrc/transfer_step.cu)
+# B3/B4: the transfer sweep (csrc/transfer_step.cu)
 # ---------------------------------------------------------------------------
 
 from tneq_tpu_torch.ops import transfer_step as ts  # noqa: E402
 
-TOL_STEP = 2e-5  # max|kernel - plain| / max|plain|: the same f32 sums in another order
+TOL_STEP = 2e-5  # max|kernel - plain| / max|plain| per site: the same f32 sums in another order
+
+# (B, Da, K, Dc) of one step; a sweep of n > 1 sites needs square cores
+_STEP_SHAPES = [
+    (130, 3, 2, 3), (32, 3, 3, 3), (512, 8, 4, 8), (7, 3, 2, 5),
+    (3, 40, 8, 40),  # complex64: one entry's T1/T2 outgrow shared memory, column strips
+]
+_SWEEP_CASES = [(n, *shape) for n in (1, 2, 5) for shape in _STEP_SHAPES
+                if n == 1 or shape[1] == shape[3]]
 
 
-def _step_inputs(B, Da, K, Dc, complex_, dev, seed=0):
+def _sweep_inputs(n, B, Da, K, Dc, complex_, dev, seed=0):
+    """env0 [B,Da,Da], a [n,Da,K,Dc] (scaled by 1/(Da K), so the envs of a
+    sweep stay of order one), mx [n,B,K,K]."""
     rng = np.random.default_rng(seed)
 
-    def mk(shape):
+    def mk(shape, scale=1.0):
         x = rng.standard_normal(shape)
         if complex_:
             x = x + 1j * rng.standard_normal(shape)
-        return torch.as_tensor(x.astype(np.complex64 if complex_ else np.float32), device=dev)
+        x = (scale * x).astype(np.complex64 if complex_ else np.float32)
+        return torch.as_tensor(x, device=dev)
 
-    return mk((B, Da, Da)), mk((Da, K, Dc)), mk((B, K, K))
+    return mk((B, Da, Da)), mk((n, Da, K, Dc), 1.0 / (Da * K)), mk((n, B, K, K))
+
+
+def _rel_sites(k, p):
+    return max(_rel(ki, pi) for ki, pi in zip(k, p))
 
 
 @pytest.mark.parametrize("complex_", [False, True])
-@pytest.mark.parametrize("B,Da,K,Dc", [
-    (130, 3, 2, 3), (32, 3, 3, 3), (512, 8, 4, 8), (7, 3, 2, 5),
-    (3, 40, 8, 40),  # one entry's intermediates outgrow shared memory: column strips
-])
-def test_transfer_kernels_match_plain_versions(dev, complex_, B, Da, K, Dc):
-    env, a, mx = _step_inputs(B, Da, K, Dc, complex_, dev)
-    plain = ts.transfer_step_complex_plain if complex_ else ts.transfer_step_plain
-    assert _rel(ts._launch(env, a, mx, complex_), plain(env, a, mx)) <= TOL_STEP
-    # the backward's d_env: the same kernel on the transposed core
-    g = _step_inputs(B, Dc, K, Dc, complex_, dev, seed=1)[0]
-    a_t = (a.conj() if complex_ else a).permute(2, 1, 0).contiguous()
-    m_t = mx.conj().resolve_conj() if complex_ else mx
-    assert _rel(ts._launch(g, a_t, m_t, complex_), plain(g, a_t, m_t)) <= TOL_STEP
+@pytest.mark.parametrize("n,B,Da,K,Dc", _SWEEP_CASES)
+def test_transfer_kernels_match_plain_versions(dev, complex_, n, B, Da, K, Dc):
+    env, a, mx = _sweep_inputs(n, B, Da, K, Dc, complex_, dev)
+    plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
+    words = 2 if complex_ else 1  # float32 words per element
+    _poison((n, B, Dc, Dc, words), dev)
+    kf = ts._launch(env, a, mx, complex_)
+    assert bool(torch.isfinite(kf).all()), "the sweep left a cell of out unwritten"
+    assert _rel_sites(kf, plain(env, a, mx)) <= TOL_STEP
+    # the backward's d_env chain: the same kernel, sites reversed, cores transposed
+    g = _sweep_inputs(1, B, Dc, K, Dc, complex_, dev, seed=1)[0]
+    _poison((n, B, Da, Da, words), dev)
+    kb = ts._launch(g, a, mx, complex_, backward=True)
+    assert bool(torch.isfinite(kb).all()), "the d_env sweep left a cell unwritten"
+    assert _rel_sites(kb, plain(g, a, mx, backward=True)) <= TOL_STEP
     torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("complex_", [False, True])
-def test_transfer_autograd_on_the_card_matches_the_host(dev, complex_):
-    env, a, mx = _step_inputs(64, 8, 4, 8, complex_, dev)
-    fn = ts.transfer_step_complex if complex_ else ts.transfer_step
+def test_nan_in_mx_reaches_the_envs_after_it(dev, complex_):
+    n, B, D, K, site, z = 5, 512, 8, 4, 2, 77
+    env, a, mx = _sweep_inputs(n, B, D, K, D, complex_, dev)
+    mx[site, z, 1, 2] = float("nan")
+    kf = ts._launch(env, a, mx, complex_)
+    kb = ts._launch(env, a, mx, complex_, backward=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(kf[site:, z]).all()) and bool(torch.isfinite(kf[:site]).all())
+    assert bool(torch.isnan(kb[:site + 1, z]).all()) and bool(torch.isfinite(kb[site + 1:]).all())
+    others = torch.ones(B, dtype=torch.bool, device=dev)
+    others[z] = False
+    plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
+    assert _rel_sites(kf[:, others], plain(env, a, mx)[:, others]) <= TOL_STEP
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("n", [1, 5])
+def test_transfer_autograd_on_the_card_matches_the_host(dev, complex_, n):
+    env, a, mx = _sweep_inputs(n, 64, 8, 4, 8, complex_, dev)
+    if n == 1:  # the one-site sweep behind transfer_step
+        a, mx = a[0], mx[0]
+        fn = ts.transfer_step_complex if complex_ else ts.transfer_step
+    else:
+        fn = ts.transfer_sweep_complex if complex_ else ts.transfer_sweep
     name = "transfer_step_complex" if complex_ else "transfer_step"
     results = []
     for where in ("cuda", "cpu"):
@@ -156,7 +195,7 @@ def test_transfer_autograd_on_the_card_matches_the_host(dev, complex_):
         ts.reset_launch_counts()
         out = fn(*leaves)
         (out.abs() ** 2).sum().backward()
-        # forward + d_env on the card, nothing on the host
+        # one sweep forward + one d_env sweep on the card, nothing on the host
         assert ts.launch_counts()[name] == (2 if where == "cuda" else 0)
         results.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
     for c, h in zip(*results):
@@ -164,7 +203,7 @@ def test_transfer_autograd_on_the_card_matches_the_host(dev, complex_):
 
 
 def test_transfer_wrapper_refuses_what_the_kernel_does_not_take(dev):
-    env, a, mx = _step_inputs(8, 3, 2, 3, False, dev)
+    env, a, mx = _sweep_inputs(2, 8, 3, 2, 3, False, dev)
     with pytest.raises(ValueError, match="float32"):
         ts._launch(env.double(), a.double(), mx.double(), False)
     with pytest.raises(ValueError, match="is on"):
@@ -173,8 +212,10 @@ def test_transfer_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ts._launch(env.transpose(1, 2), a, mx, False)
     with pytest.raises(ValueError, match="shape"):
         ts._launch(env[:, :2, :2].contiguous(), a, mx, False)
-    big = _step_inputs(2, 64, 8, 64, True, dev)
+    with pytest.raises(ValueError, match="square cores"):
+        ts._launch(env, _sweep_inputs(2, 8, 3, 2, 4, False, dev)[1], mx, False)
+    big = _sweep_inputs(1, 2, 64, 8, 64, True, dev)
     with pytest.raises(ValueError, match="does not fit"):
-        ts.transfer_step_complex(*big)
+        ts.transfer_sweep_complex(*big)
     with pytest.raises(ValueError, match="float32"):
-        ts.transfer_step(env.double(), a.double(), mx.double())
+        ts.transfer_step(env.double(), a[0].double(), mx[0].double())

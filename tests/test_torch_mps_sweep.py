@@ -102,19 +102,19 @@ def test_remat_gives_the_same_values_and_gradients():
 def test_sweep_steps_go_through_the_transfer_step():
     g, p_np, states, x = _problem(6, torch.float32)
     calls = []
-    orig = ts._step
+    orig = ts._sweep
 
-    def spy(env, a, mx, complex_):
-        calls.append(complex_)
-        return orig(env, a, mx, complex_)
+    def spy(env0, a, mx, complex_, backward):
+        calls.append((a.shape[0], complex_, backward))
+        return orig(env0, a, mx, complex_, backward)
 
-    ts._step = spy
+    ts._sweep = spy
     try:
         _t_value_and_grad(g, p_np, states, x, torch.float32, True)
     finally:
-        ts._step = orig
-    # three middle steps forward, three d_env steps backward, all B3
-    assert calls == [False] * 6
+        ts._sweep = orig
+    # the three middle steps as one B3 sweep forward and one d_env sweep back
+    assert calls == [(3, False, False), (3, False, True)]
 
 
 def test_chain_checks():

@@ -1,39 +1,62 @@
-// Hand-written Hopper (sm_90a) kernels for the MPS transfer step of the
-// Born-rule sweep.
+// Hand-written Hopper (sm_90a) kernel for the MPS transfer sweep of the
+// Born-rule forward and of its d_env backward.
 //
 // Replaces the two Pallas kernels of tneq_tpu/ops/pallas_kernels.py:
 //   B3  fused_transfer_step          (pl.pallas_call at pallas_kernels.py:91)
 //   B4  fused_transfer_step_complex  (pl.pallas_call at pallas_kernels.py:177)
-// Their VJPs (pallas_kernels.py:231-262) run d_env through these same
-// kernels on the transposed core; d_a and d_mx stay torch.einsum reductions
-// (ops/transfer_step.py), as JAX left them to XLA.
+// JAX runs one kernel call per transfer step inside a lax.scan, forward and
+// backward (the custom VJP, pallas_kernels.py:231-262, runs d_env through
+// the same kernel on the transposed core).  Here one launch runs all the
+// steps of a sweep: once forward, once for the backward's d_env chain.
+// d_a and d_mx stay batched torch.einsum contractions over the stack of
+// sites (ops/transfer_step.py), as JAX left them to XLA.
 //
-// One step, for env [B, Da, Da], a [Da, K, Dc], mx [B, K, K]:
-//     out[z,c,d] = sum_{a,b,k,l} env[z,a,b] * A[a,k,c] * bra(A)[b,l,d] * Mx[z,k,l]
-// with bra(A) = A for B3 (float32) and conj(A) for B4 (complex64).
+// One step, for env [B, Da, Da], A [Da, K, Dc], Mx [B, K, K]:
+//     out[z,c,d] = sum_{a,b,k,l} env[z,a,b] * ket(A)[a,k,c] * bra(A)[b,l,d] * op(Mx)[z,k,l]
+// Forward: ket = op = identity, bra = identity (B3) or conj (B4).  The sweep
+// over a stack A [n, Da, K, Dc], Mx [n, B, K, K] writes every step's env:
+//     out[0] = step(env0, A[0], Mx[0]),  out[i] = step(out[i-1], A[i], Mx[i]).
+// Backward (the d_env chain): the sites in reverse, each core transposed
+// (2,1,0), and for B4 ket = op = conj, bra = identity (the step on
+// conj(A)^T and conj(Mx)); the result of site i is written to out[i], so
+// out[i] is the cotangent of site i's input env.
 //
 // Design.  The TPU forms the [D^2 K^2, B] outer product E = env (x) Mx and
 // runs ONE MXU matmul W[cd, abkl] @ E per 512-lane block (2 B D^4 K^2
 // flops).  Here the step is factorised, 2 B (2 D^3 K + D^2 K^2) flops
 // (13x fewer at D = 8, K = 4):
-//     T1[z,b,k,c] = sum_a   env[z,a,b] A[a,k,c]
-//     T2[z,b,l,c] = sum_k   T1[z,b,k,c] Mx[z,k,l]
+//     T1[z,b,k,c] = sum_a   env[z,a,b] ket(A)[a,k,c]
+//     T2[z,b,l,c] = sum_k   T1[z,b,k,c] op(Mx)[z,k,l]
 //     out[z,c,d]  = sum_b,l T2[z,b,l,c] bra(A)[b,l,d]
-// One block of 256 threads takes a group of zb batch entries.  A is loaded
-// once per block into shared memory; env[z] and Mx[z] of the group are
-// staged there too (contiguous, coalesced loads), and T1/T2 live in shared
-// memory.  Each phase gives a thread one output element, the fastest index
-// on neighbouring threads, so shared reads are conflict-free or broadcast
-// and the z-major stores of out are coalesced.  Where one z's T1/T2 would
-// outgrow shared memory, the block walks over strips of ct columns c (the
-// plan, zb and ct, is computed by the Python wrapper).  B4 uses native
-// complex FMAs on float2, not the TPU's stacked real form.
+// At the shapes of the Born-rule paths a step is microseconds of latency,
+// not bytes or flops, and each batch entry's chain of sites is independent
+// of every other's, so:
+//   * Persistent blocks.  One block of 256 threads owns a group of zb batch
+//     entries for the whole sweep; its env stays in shared memory from one
+//     site to the next (two buffers: the column strips of site i write the
+//     next env while later strips still read this one).  Each out[i] is
+//     written to global memory once and never read back.
+//   * Prefetch.  A[i+1] and the group's Mx[i+1] do not depend on the carry:
+//     they are copied with cp.async into a second stage while site i
+//     computes (16-byte copies where aligned, element copies otherwise; the
+//     backward's transposed core is gathered element by element).  A site's
+//     chain holds only shared-memory arithmetic and three block barriers.
+//   * zb from the batch.  The plan (ops/transfer_step.kernel_plan) spreads
+//     the batch over the card's 132 SMs, up to 32 entries per block, so one
+//     copy of A per block and site serves many entries at wide D.
+//   * Register tiles.  Each product phase gives a thread a tile x tile block
+//     of outputs (tile 1, 2 or 4 from the plan): per summed index it loads
+//     2*tile shared values for tile^2 FMAs.  Where one group's T1/T2 would
+//     outgrow shared memory, a site walks over strips of ct columns c.
+//   * Summation order: each output sums its index from 0 upwards in one
+//     accumulator, as the plain version's loops do.  B4 uses native complex
+//     FMAs on float2, not the TPU's stacked real form.
 //
-// What bounds it on an H100.  At the slice width (B = 512, D = 8, K = 4,
-// f32) the step reads and writes ~296 KB and does 5.2 MFLOP: 0.09 us by
-// bytes.  Every launch at that width is bound by launch latency, not by
-// the card.  Later work: mma.sync / wgmma over the batch dimension, and one
-// launch for all the transfer steps of a sweep.
+// What bounds it on an H100.  At the born_rule width (B = 512, D = 8, K = 4,
+// n = 5, f32) the sweep reads and writes ~1.4 MB and does 26 MFLOP: 0.4 us
+// by operations; the launch and the n dependent sites are the cost.  At
+// (4096, 16, 4) a site is ~300 MFLOP, bound by operations.  Later work:
+// mma.sync / wgmma over the batch (3xTF32 to keep f32 accuracy).
 //
 // Interface: plain C, loaded with ctypes.  Each entry point returns
 // cudaGetLastError() after its launch (0 = success); it launches on the
@@ -41,6 +64,7 @@
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -53,7 +77,7 @@ struct Real {
   static __device__ __forceinline__ T zero() { return 0.f; }
   // c + x * y
   static __device__ __forceinline__ T fma(T x, T y, T c) { return fmaf(x, y, c); }
-  static __device__ __forceinline__ T bra(T x) { return x; }
+  static __device__ __forceinline__ T conj(T x) { return x; }
 };
 
 struct Complex {
@@ -66,130 +90,310 @@ struct Complex {
     c.y = fmaf(x.y, y.x, c.y);
     return c;
   }
-  static __device__ __forceinline__ T bra(T x) { return make_float2(x.x, -x.y); }
+  static __device__ __forceinline__ T conj(T x) { return make_float2(x.x, -x.y); }
 };
 
-template <class Ops>
-__global__ void __launch_bounds__(kThreads)
-transfer_step_kernel(const typename Ops::T* __restrict__ env,
-                     const typename Ops::T* __restrict__ a,
-                     const typename Ops::T* __restrict__ mx, int B, int Da,
-                     int K, int Dc, int zb, int ct,
-                     typename Ops::T* __restrict__ out) {
+// ket, op and bra of the step: forward (ket, op plain; bra conj) or the
+// backward's d_env chain (ket, op conj; bra plain).  conj is the identity
+// for Real.
+template <class Ops, bool Backward>
+struct Roles {
   using T = typename Ops::T;
+  static __device__ __forceinline__ T ket(T x) { return Backward ? Ops::conj(x) : x; }
+  static __device__ __forceinline__ T op(T x) { return Backward ? Ops::conj(x) : x; }
+  static __device__ __forceinline__ T bra(T x) { return Backward ? x : Ops::conj(x); }
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+template <class T>
+__device__ __forceinline__ void cp_async_elem(T* dst, const T* src) {
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4- or 8-byte elements");
+  if constexpr (sizeof(T) == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(smem_u32(dst)),
+                 "l"(src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy `count` contiguous elements to shared memory, spread over the block.
+template <class T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src, int count) {
+  const size_t bytes = (size_t)count * sizeof(T);
+  if ((((uintptr_t)dst | (uintptr_t)src | bytes) & 15) == 0) {
+    for (int i = threadIdx.x; i < (int)(bytes / 16); i += blockDim.x)
+      cp_async16(reinterpret_cast<char*>(dst) + 16 * i,
+                 reinterpret_cast<const char*>(src) + 16 * i);
+  } else {
+    for (int i = threadIdx.x; i < count; i += blockDim.x) cp_async_elem(dst + i, src + i);
+  }
+}
+
+// P independent products C_p[m][n] = sum_q X_p[q*xq + m] * fy(Y_p[q*yq + n])
+// for m < M, n < N, q < Q, spread over the block in Tile x Tile register
+// tiles (n-tiles fastest).  bases(p, x, y) gives the product's operands;
+// store(p, m, n, v) writes one result.  Rows and columns past the edge load
+// the last valid element and are not stored.
+template <class Ops, int Tile, class FY, class Bases, class Store>
+__device__ __forceinline__ void tile_products(int P, int M, int N, int Q, int xq, int yq,
+                                              Bases bases, FY fy, Store store) {
+  using T = typename Ops::T;
+  const int tm = (M + Tile - 1) / Tile;
+  const int tn = (N + Tile - 1) / Tile;
+  const int total = P * tm * tn;
+  for (int t = threadIdx.x; t < total; t += blockDim.x) {
+    const int n0 = (t % tn) * Tile;
+    const int m0 = ((t / tn) % tm) * Tile;
+    const int p = t / (tn * tm);
+    const T* x;
+    const T* y;
+    bases(p, x, y);
+    int mo[Tile], no[Tile];
+#pragma unroll
+    for (int r = 0; r < Tile; ++r) {
+      mo[r] = min(m0 + r, M - 1);
+      no[r] = min(n0 + r, N - 1);
+    }
+    T acc[Tile][Tile];
+#pragma unroll
+    for (int r = 0; r < Tile; ++r)
+#pragma unroll
+      for (int s = 0; s < Tile; ++s) acc[r][s] = Ops::zero();
+#pragma unroll 2
+    for (int q = 0; q < Q; ++q) {
+      T xv[Tile], yv[Tile];
+#pragma unroll
+      for (int r = 0; r < Tile; ++r) xv[r] = x[q * xq + mo[r]];
+#pragma unroll
+      for (int s = 0; s < Tile; ++s) yv[s] = fy(y[q * yq + no[s]]);
+#pragma unroll
+      for (int r = 0; r < Tile; ++r)
+#pragma unroll
+        for (int s = 0; s < Tile; ++s) acc[r][s] = Ops::fma(xv[r], yv[s], acc[r][s]);
+    }
+#pragma unroll
+    for (int r = 0; r < Tile; ++r)
+#pragma unroll
+      for (int s = 0; s < Tile; ++s)
+        if (m0 + r < M && n0 + s < N) store(p, m0 + r, n0 + s, acc[r][s]);
+  }
+}
+
+// Shared memory of one block, in elements (the plan in ops/transfer_step.py
+// computes the same): `stages` copies of A and of the group's Mx, `envs`
+// env buffers (2 when the sweep has more than one site), T1 and T2.
+__host__ __device__ inline size_t smem_elems(int n, int Da, int K, int Dc, int zb, int ct,
+                                             int stages) {
+  const int envs = n > 1 ? 2 : 1;
+  return (size_t)stages * ((size_t)Da * K * Dc + (size_t)zb * K * K) +
+         (size_t)zb * ((size_t)envs * Da * Da + 2 * (size_t)Da * K * ct);
+}
+
+template <class Ops, bool Backward, int Tile>
+__global__ void __launch_bounds__(kThreads)
+transfer_sweep_kernel(const typename Ops::T* __restrict__ env0,
+                      const typename Ops::T* __restrict__ a,
+                      const typename Ops::T* __restrict__ mx, int n, int B, int Da,
+                      int K, int Dc, int zb, int ct, int stages,
+                      typename Ops::T* __restrict__ out) {
+  using T = typename Ops::T;
+  using R = Roles<Ops, Backward>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int DK = Da * K;
-  T* sA = reinterpret_cast<T*>(smem_raw);  // [Da, K, Dc]
-  T* sEnv = sA + DK * Dc;                  // [zb, Da, Da]
-  T* sMx = sEnv + zb * Da * Da;            // [zb, K, K]
-  T* sT1 = sMx + zb * K * K;               // [zb, Da, K, ct]
-  T* sT2 = sT1 + zb * DK * ct;             // [zb, Da, K, ct]
+  const int DKC = DK * Dc;
+  const int KK = K * K;
+  const int DD = Da * Da;
+  T* sA = reinterpret_cast<T*>(smem_raw);  // [stages][Da, K, Dc] (logical layout)
+  T* sMx = sA + stages * DKC;              // [stages][zb, K, K]
+  T* sEnv = sMx + stages * zb * KK;        // [envs][zb, Da, Da]
+  T* sT1 = sEnv + (n > 1 ? 2 : 1) * zb * DD;  // [zb, Da, K, ct]
+  T* sT2 = sT1 + zb * DK * ct;                // [zb, Da, K, ct]
 
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
   const int z0 = blockIdx.x * zb;
   const int nz = min(zb, B - z0);
 
-  for (int i = tid; i < DK * Dc; i += nt) sA[i] = a[i];
-  const T* envz = env + (size_t)z0 * Da * Da;
-  for (int i = tid; i < nz * Da * Da; i += nt) sEnv[i] = envz[i];
-  const T* mxz = mx + (size_t)z0 * K * K;
-  for (int i = tid; i < nz * K * K; i += nt) sMx[i] = mxz[i];
-  __syncthreads();
+  // Stage site s (sweep order) into buffer st and commit it as one group.
+  auto load_site = [&](int s, int st) {
+    const int i = Backward ? n - 1 - s : s;
+    const T* ai = a + (size_t)i * DKC;
+    T* dA = sA + st * DKC;
+    if (Backward) {
+      // logical A[a,k,c] = stored A[c,k,a]
+      for (int idx = threadIdx.x; idx < DKC; idx += blockDim.x) {
+        const int c = idx % Dc;
+        const int k = (idx / Dc) % K;
+        const int aa = idx / (Dc * K);
+        cp_async_elem(dA + idx, ai + ((size_t)c * K + k) * Da + aa);
+      }
+    } else {
+      copy_async(dA, ai, DKC);
+    }
+    copy_async(sMx + st * zb * KK, mx + ((size_t)i * B + z0) * KK, nz * KK);
+    cp_async_commit();
+  };
 
-  for (int c0 = 0; c0 < Dc; c0 += ct) {
-    const int w = min(ct, Dc - c0);
-    const int n1 = nz * DK * w;
-    // T1[zz,b,k,j] = sum_a env[zz,a,b] A[a,k,c0+j]
-    for (int i = tid; i < n1; i += nt) {
-      const int j = i % w;
-      const int bk = (i / w) % DK;  // b * K + k
-      const int zz = i / (w * DK);
-      const int b = bk / K;
-      const int k = bk - b * K;
-      const T* e = sEnv + zz * Da * Da + b;
-      const T* ap = sA + k * Dc + c0 + j;
-      T acc = Ops::zero();
-      for (int aa = 0; aa < Da; ++aa)
-        acc = Ops::fma(e[aa * Da], ap[aa * K * Dc], acc);
-      sT1[(zz * DK + bk) * ct + j] = acc;
+  copy_async(sEnv, env0 + (size_t)z0 * DD, nz * DD);
+  load_site(0, 0);
+
+  for (int s = 0; s < n; ++s) {
+    const int st = stages > 1 ? (s & 1) : 0;
+    cp_async_wait_all();
+    __syncthreads();  // site s staged; every thread is done with site s-1
+    if (stages > 1 && s + 1 < n) load_site(s + 1, st ^ 1);
+
+    const int i = Backward ? n - 1 - s : s;
+    const T* A_ = sA + st * DKC;
+    const T* M_ = sMx + st * zb * KK;
+    const T* E_ = sEnv + (s & 1) * zb * DD;
+    T* E_next = s + 1 < n ? sEnv + ((s + 1) & 1) * zb * DD : nullptr;
+    T* out_i = out + ((size_t)i * B + z0) * Dc * Dc;
+
+    for (int c0 = 0; c0 < Dc; c0 += ct) {
+      const int w = min(ct, Dc - c0);
+      // T1[zz,b,k,j] = sum_a env[zz,a,b] ket(A)[a,k,c0+j]; product (zz, k)
+      tile_products<Ops, Tile>(
+          nz * K, Da, w, Da, Da, K * Dc,
+          [&](int p, const T*& x, const T*& y) {
+            x = E_ + (p / K) * DD;
+            y = A_ + (p % K) * Dc + c0;
+          },
+          [](T v) { return R::ket(v); },
+          [&](int p, int b, int j, T v) {
+            sT1[(((p / K) * Da + b) * K + p % K) * ct + j] = v;
+          });
+      __syncthreads();
+      // T2[zz,b,l,j] = sum_k T1[zz,b,k,j] op(Mx)[zz,k,l]; product (zz, b)
+      tile_products<Ops, Tile>(
+          nz * Da, w, K, K, ct, K,
+          [&](int p, const T*& x, const T*& y) {
+            x = sT1 + p * K * ct;
+            y = M_ + (p / Da) * KK;
+          },
+          [](T v) { return R::op(v); },
+          [&](int p, int j, int l, T v) { sT2[(p * K + l) * ct + j] = v; });
+      __syncthreads();
+      // out[zz,c0+j,d] = sum_{b,l} T2[zz,b,l,j] bra(A)[b,l,d]; product zz
+      tile_products<Ops, Tile>(
+          nz, w, Dc, DK, ct, Dc,
+          [&](int p, const T*& x, const T*& y) {
+            x = sT2 + p * DK * ct;
+            y = A_;
+          },
+          [](T v) { return R::bra(v); },
+          [&](int p, int j, int d, T v) {
+            const int o = (p * Dc + c0 + j) * Dc + d;
+            out_i[o] = v;
+            if (E_next) E_next[o] = v;
+          });
+      // No barrier: the next strip's T1 overwrites what T2 read before the
+      // barrier above, and its T2 waits behind its own T1 barrier.
     }
-    __syncthreads();
-    // T2[zz,b,l,j] = sum_k T1[zz,b,k,j] Mx[zz,k,l]
-    for (int i = tid; i < n1; i += nt) {
-      const int j = i % w;
-      const int bl = (i / w) % DK;  // b * K + l
-      const int zz = i / (w * DK);
-      const int b = bl / K;
-      const int l = bl - b * K;
-      const T* t1 = sT1 + (zz * DK + b * K) * ct + j;
-      const T* m = sMx + zz * K * K + l;
-      T acc = Ops::zero();
-      for (int k = 0; k < K; ++k) acc = Ops::fma(t1[k * ct], m[k * K], acc);
-      sT2[(zz * DK + bl) * ct + j] = acc;
+    if (stages == 1 && s + 1 < n) {
+      __syncthreads();  // every thread is done with the one stage
+      load_site(s + 1, 0);
     }
-    __syncthreads();
-    // out[zz,c0+j,d] = sum_{b,l} T2[zz,b,l,j] bra(A)[b,l,d]
-    const int n2 = nz * w * Dc;
-    for (int i = tid; i < n2; i += nt) {
-      const int d = i % Dc;
-      const int j = (i / Dc) % w;
-      const int zz = i / (Dc * w);
-      const T* t2 = sT2 + zz * DK * ct + j;
-      const T* ap = sA + d;
-      T acc = Ops::zero();
-      for (int bl = 0; bl < DK; ++bl)
-        acc = Ops::fma(t2[bl * ct], Ops::bra(ap[bl * Dc]), acc);
-      out[((size_t)(z0 + zz) * Dc + c0 + j) * Dc + d] = acc;
-    }
-    __syncthreads();  // the next strip overwrites T1 and T2
+  }
+}
+
+template <class Ops, bool Backward, int Tile>
+int launch_t(const void* env0, const void* a, const void* mx, int n, int B, int Da,
+             int K, int Dc, int zb, int ct, int stages, void* out, size_t smem,
+             cudaStream_t stream) {
+  using T = typename Ops::T;
+  auto kernel = transfer_sweep_kernel<Ops, Backward, Tile>;
+  if (smem > kDefaultSmem) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const unsigned blocks = (unsigned)((B + zb - 1) / zb);
+  kernel<<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(env0), static_cast<const T*>(a), static_cast<const T*>(mx),
+      n, B, Da, K, Dc, zb, ct, stages, static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <class Ops, bool Backward>
+int launch_b(int tile, const void* env0, const void* a, const void* mx, int n, int B,
+             int Da, int K, int Dc, int zb, int ct, int stages, void* out, size_t smem,
+             cudaStream_t stream) {
+  switch (tile) {
+    case 1:
+      return launch_t<Ops, Backward, 1>(env0, a, mx, n, B, Da, K, Dc, zb, ct, stages,
+                                        out, smem, stream);
+    case 2:
+      return launch_t<Ops, Backward, 2>(env0, a, mx, n, B, Da, K, Dc, zb, ct, stages,
+                                        out, smem, stream);
+    case 4:
+      return launch_t<Ops, Backward, 4>(env0, a, mx, n, B, Da, K, Dc, zb, ct, stages,
+                                        out, smem, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 
 template <class Ops>
-int launch(int device, const void* env, const void* a, const void* mx, int B,
-           int Da, int K, int Dc, int zb, int ct, void* out, void* stream) {
+int launch(int device, const void* env0, const void* a, const void* mx, int n, int B,
+           int Da, int K, int Dc, int backward, int zb, int ct, int tile, int stages,
+           void* out, void* stream) {
   using T = typename Ops::T;
-  if (B < 1 || Da < 1 || K < 1 || Dc < 1 || zb < 1 || ct < 1 || ct > Dc)
+  if (n < 1 || B < 1 || Da < 1 || K < 1 || Dc < 1 || zb < 1 || ct < 1 || ct > Dc ||
+      stages < 1 || stages > 2 || (n > 1 && Da != Dc))
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(T) * ((size_t)Da * K * Dc +
-                   (size_t)zb * ((size_t)Da * Da + (size_t)K * K +
-                                 2 * (size_t)Da * K * ct));
+  const size_t smem = sizeof(T) * smem_elems(n, Da, K, Dc, zb, ct, stages);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (smem > kDefaultSmem) {
-    err = cudaFuncSetAttribute(transfer_step_kernel<Ops>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  const unsigned blocks = (unsigned)((B + zb - 1) / zb);
-  transfer_step_kernel<Ops><<<blocks, kThreads, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(env), static_cast<const T*>(a),
-      static_cast<const T*>(mx), B, Da, K, Dc, zb, ct, static_cast<T*>(out));
-  return (int)cudaGetLastError();
+  auto s = static_cast<cudaStream_t>(stream);
+  return backward ? launch_b<Ops, true>(tile, env0, a, mx, n, B, Da, K, Dc, zb, ct,
+                                        stages, out, smem, s)
+                  : launch_b<Ops, false>(tile, env0, a, mx, n, B, Da, K, Dc, zb, ct,
+                                         stages, out, smem, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// B3 (float32).  env [B, Da, Da], a [Da, K, Dc], mx [B, K, K] -> out [B, Dc, Dc].
-int tneq_transfer_step_f32(int device, const void* env, const void* a,
-                           const void* mx, int B, int Da, int K, int Dc,
-                           int zb, int ct, void* out, void* stream) {
-  return launch<Real>(device, env, a, mx, B, Da, K, Dc, zb, ct, out, stream);
+// B3 (float32).  Forward: env0 [B, Da, Da], a [n, Da, K, Dc], mx [n, B, K, K]
+// -> out [n, B, Dc, Dc].  backward = 1: the d_env chain; a is the forward's
+// stack [n, Dc, K, Da] (read transposed, sites in reverse), env0 is the
+// cotangent [B, Da, Da] of the last site's output, out[i] [B, Dc, Dc] the
+// cotangent of site i's input.  (Da, K, Dc) are the step's own dims.
+int tneq_transfer_sweep_f32(int device, const void* env0, const void* a, const void* mx,
+                            int n, int B, int Da, int K, int Dc, int backward, int zb,
+                            int ct, int tile, int stages, void* out, void* stream) {
+  return launch<Real>(device, env0, a, mx, n, B, Da, K, Dc, backward, zb, ct, tile,
+                      stages, out, stream);
 }
 
-// B4 (complex64, interleaved re/im as float2; the bra is conj(A)).
-int tneq_transfer_step_c64(int device, const void* env, const void* a,
-                           const void* mx, int B, int Da, int K, int Dc,
-                           int zb, int ct, void* out, void* stream) {
-  return launch<Complex>(device, env, a, mx, B, Da, K, Dc, zb, ct, out,
-                         stream);
+// B4 (complex64, interleaved re/im as float2; the bra is conj(A), and the
+// backward chain runs on conj(A)^T and conj(Mx)).
+int tneq_transfer_sweep_c64(int device, const void* env0, const void* a, const void* mx,
+                            int n, int B, int Da, int K, int Dc, int backward, int zb,
+                            int ct, int tile, int stages, void* out, void* stream) {
+  return launch<Complex>(device, env0, a, mx, n, B, Da, K, Dc, backward, zb, ct, tile,
+                         stages, out, stream);
 }
 
 }  // extern "C"

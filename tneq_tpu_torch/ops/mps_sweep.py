@@ -10,7 +10,8 @@ Why the kernel is the default here while JAX's ``use_pallas`` defaults to
 False: XLA fuses JAX's einsum step into one compiled program, while eager
 PyTorch runs ``torch.einsum`` as a chain of separate launches with
 ``[B, D, K, D]`` intermediates in device memory; the kernels B3/B4
-(``ops/transfer_step.py``) do one step in one launch.
+(``ops/transfer_step.py``) run all the middle steps of a sweep in one
+launch, and its d_env backward in one more.
 """
 
 from __future__ import annotations
@@ -19,7 +20,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..graph.dsl import CircuitGraph
-from .transfer_step import transfer_step, transfer_step_complex
+from .transfer_step import (
+    transfer_step,
+    transfer_step_complex,
+    transfer_sweep,
+    transfer_sweep_complex,
+)
 
 __all__ = ["is_mps_chain", "mps_sweep_siamese_fn"]
 
@@ -56,6 +62,15 @@ def _kernel_step(env, a, mx, conj):
     return transfer_step(env, a, mx)
 
 
+def _kernel_sweep(env, a, mx):
+    """All middle steps at once: ``a [n, D, K, D]``, ``mx [n, B, K, K]``."""
+    if env.is_complex() or a.is_complex():
+        c64 = torch.complex64
+        out = transfer_sweep_complex(env.to(c64), a.to(c64), mx.to(c64))
+        return out.to(env.dtype)
+    return transfer_sweep(env, a, mx)
+
+
 def mps_sweep_siamese_fn(
     graph: CircuitGraph,
     conj_right: bool = True,
@@ -67,10 +82,12 @@ def mps_sweep_siamese_fn(
     ``states``: per-qubit ``(rank,)`` vectors; ``measures``: per-qubit
     ``(B, K, K)`` operators.  ``use_kernel`` (JAX's ``use_pallas``) runs
     the middle transfer steps through B3/B4 (complex inputs are cast to
-    complex64 first); otherwise one ``torch.einsum`` per step.  ``remat``
-    recomputes each middle step in the backward
-    (``torch.utils.checkpoint``) instead of storing its intermediates.
-    JAX's ``lax.scan`` over uniform middle cores is a host loop here.
+    complex64 first); otherwise one ``torch.einsum`` per step.  Where the
+    middle cores are uniform and more than one (JAX's ``lax.scan`` branch),
+    the kernel path stacks them and runs the sweep in one call; a
+    non-uniform chain steps one site at a time.  ``remat`` recomputes each
+    middle step in the backward (``torch.utils.checkpoint``) instead of
+    storing its intermediates, so it too steps one site at a time.
     Unlike ``jnp.einsum``, ``torch.einsum`` does not promote: cores, states
     and measures share one dtype.
     """
@@ -97,7 +114,17 @@ def mps_sweep_siamese_fn(
 
         a0 = torch.einsum("stkc,s,t->kc", params[0], states[0], states[1])
         env = torch.einsum("kc,zkl,ld->zcd", a0, measures[0], conj(a0))
-        for i in range(1, m - 1):
+        mids = range(1, m - 1)
+        uniform = len({tuple(params[i].shape) for i in mids}) == 1
+        if use_kernel and not remat and uniform and len(mids) > 1:
+            a = torch.einsum(
+                "naskc,ns->nakc",
+                torch.stack([params[i] for i in mids]),
+                torch.stack([states[i + 1] for i in mids]),
+            )
+            env = _kernel_sweep(env, a, torch.stack([measures[i] for i in mids]))
+            mids = ()
+        for i in mids:
             a = torch.einsum("askc,s->akc", params[i], states[i + 1])
             if remat:
                 env = checkpoint(step, env, a, measures[i], conj, use_reentrant=False)

@@ -1,30 +1,36 @@
-"""The MPS transfer step of the Born-rule sweep: kernels B3 (float32) and B4
-(complex64).
+"""The MPS transfer sweep of the Born-rule contraction: kernels B3 (float32)
+and B4 (complex64).
 
 Counterpart of ``tneq_tpu/ops/pallas_kernels.py``.  One step contracts the
 boundary environment with one middle core and its measurement operators::
 
     out[z,c,d] = sum env[z,a,b] * A[a,k,c] * bra(A)[b,l,d] * Mx[z,k,l]
 
-with ``bra(A) = A`` (B3) or ``conj(A)`` (B4, the Born-rule bra).  On a CUDA
-tensor it runs as the hand-written Hopper kernels of
-``csrc/transfer_step.cu``; on a CPU tensor as their plain PyTorch versions
-(:func:`transfer_step_plain`, :func:`transfer_step_complex_plain`), which
-do the same factorised sums.  A CUDA tensor launches the kernel or raises:
-nothing falls back.
+with ``bra(A) = A`` (B3) or ``conj(A)`` (B4, the Born-rule bra).  A sweep
+runs the steps of a stack of cores ``A [n, Da, K, Dc]`` and operators
+``Mx [n, B, K, K]`` from ``env0 [B, Da, Da]``; on a CUDA tensor the whole
+sweep is ONE launch of the hand-written Hopper kernel of
+``csrc/transfer_step.cu``, on a CPU tensor the plain PyTorch version
+(:func:`transfer_sweep_plain`, :func:`transfer_sweep_complex_plain`), which
+loops over the same factorised step.  A CUDA tensor launches the kernel or
+raises: nothing falls back.
 
-:func:`transfer_step` and :func:`transfer_step_complex` are
-``torch.autograd.Function``\\ s.  Their backward runs ``d_env`` through the
-same kernel on the transposed core, as JAX's custom VJP does
-(``pallas_kernels.py:231-262``); ``d_a`` and ``d_mx`` are ``torch.einsum``
-reductions.  The complex backward is derived for torch's convention (the
-gradient of a real loss is the conjugate of ``jax.grad``'s)::
+:func:`transfer_sweep` and :func:`transfer_sweep_complex` are
+``torch.autograd.Function``\\ s returning the last env.  Their backward runs
+the ``d_env`` chain as one more launch of the same kernel (the sites in
+reverse, on the transposed cores, as JAX's custom VJP does per step,
+``pallas_kernels.py:231-262``), and ``d_a``/``d_mx`` of all sites as a few
+batched pairwise contractions over the stack.  The complex backward is
+derived for torch's convention (the gradient of a real loss is the
+conjugate of ``jax.grad``'s)::
 
     d_env = B4(g, conj(A).permute(2,1,0), conj(Mx))
     d_A   = sum conj(env) A conj(Mx) g  +  sum env A Mx conj(g)
     d_Mx  = sum conj(env) conj(A) A g
 
-and is held by ``gradcheck`` in complex128 (``tests/test_torch_transfer_step.py``).
+and is held by ``gradcheck`` in complex128 (``tests/test_torch_transfer_step.py``,
+``tests/test_torch_transfer_sweep.py``).  :func:`transfer_step` and
+:func:`transfer_step_complex` are the one-site sweep.
 
 JAX's ``block_z``, ``interpret`` and ``precision`` are TPU knobs and are
 dropped: the kernels compute in full float32.
@@ -34,29 +40,34 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple
 
 import torch
 
 from . import cuda_build
 
 __all__ = [
+    "transfer_sweep",
+    "transfer_sweep_complex",
+    "transfer_sweep_plain",
+    "transfer_sweep_complex_plain",
     "transfer_step",
     "transfer_step_complex",
     "transfer_step_plain",
     "transfer_step_complex_plain",
     "kernel_supported",
     "kernel_plan",
+    "SweepPlan",
     "launch_counts",
     "reset_launch_counts",
 ]
 
 THREADS = 256  # threads per block (csrc/transfer_step.cu kThreads)
 SMEM_MAX = 232448  # dynamic shared memory one block may use on an H100
-SMEM_DEFAULT = 48 * 1024  # above this the kernel opts in to more
+NUM_SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_ZB = 32  # batch entries per block
 
-# launches of each kernel, counted by the wrappers where they launch
+# launches of the sweep kernel, by dtype, counted by the wrapper where it launches
 _LAUNCHES: Dict[str, int] = {"transfer_step": 0, "transfer_step_complex": 0}
 
 
@@ -76,43 +87,63 @@ def kernel_supported(dtype: torch.dtype) -> bool:
     return dtype in (torch.float32, torch.complex64)
 
 
-def kernel_plan(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype) -> Tuple[int, int, int]:
-    """``(zb, ct, smem_bytes)``: batch entries per block, width of the strip
-    of output columns c a block computes at a time, and the block's shared
-    memory.  Decided by shape and dtype alone.
+class SweepPlan(NamedTuple):
+    zb: int  # batch entries per block
+    ct: int  # width of the strip of output columns c a site computes at a time
+    tile: int  # each thread's register tile is tile x tile outputs
+    stages: int  # buffers of A / Mx: 2 prefetches the next site, 1 does not
+    smem: int  # bytes of shared memory per block
 
-    Shared memory holds A (``Da*K*Dc``) plus, per batch entry, env
-    (``Da*Da``), Mx (``K*K``) and the two intermediates T1/T2
-    (``2*Da*K*ct``).  ``ct = Dc`` where one entry fits, else the widest
-    strip that does; ``zb`` gives a block about ``THREADS`` outputs, within
-    48 KB where that suffices.  Raises ``ValueError`` when even a
-    one-column strip does not fit (A alone too large)."""
+
+def kernel_plan(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1) -> SweepPlan:
+    """The launch plan of an ``n``-site sweep of steps ``env [B,Da,Da], A
+    [Da,K,Dc] -> [B,Dc,Dc]``, decided by shape and dtype alone.
+
+    ``zb`` spreads the batch over the card's SMs (one block each, at most
+    ``MAX_ZB`` entries).  Shared memory holds ``stages`` copies of A and of
+    the group's Mx, one env buffer (two when ``n > 1``) per entry, and T1/T2
+    (``2*Da*K*ct`` per entry); ``ct = Dc`` where that fits, else the
+    columns are cut into the fewest balanced strips that do.  Prefetch
+    (``stages = 2``) where ``n > 1`` and it fits; ``zb`` halves until one
+    column fits.  ``tile`` is the largest of 4, 2, 1 that still gives every
+    thread a tile of T1.  Raises ``ValueError`` when even one entry with a
+    one-column strip does not fit."""
     if not kernel_supported(dtype):
-        raise ValueError(f"the transfer-step kernels take float32 or complex64, got {dtype}")
-    if min(B, Da, K, Dc) < 1:
-        raise ValueError(f"empty transfer step: B={B}, Da={Da}, K={K}, Dc={Dc}")
+        raise ValueError(f"the transfer-sweep kernels take float32 or complex64, got {dtype}")
+    if min(n, B, Da, K, Dc) < 1:
+        raise ValueError(f"empty transfer sweep: n={n}, B={B}, Da={Da}, K={K}, Dc={Dc}")
+    if n > 1 and Da != Dc:
+        raise ValueError(f"a sweep of {n} sites needs square cores, got Da={Da}, Dc={Dc}")
     elem = 8 if dtype.is_complex else 4
-    a_el = Da * K * Dc
-    fixed = Da * Da + K * K
+    room = SMEM_MAX // elem
+    envs = 2 if n > 1 else 1
 
-    def per_z(ct: int) -> int:
-        return fixed + 2 * Da * K * ct
+    def widest(zb: int, stages: int) -> int:
+        free = room - stages * (Da * K * Dc + zb * K * K) - zb * envs * Da * Da
+        return min(Dc, free // (zb * 2 * Da * K))
 
-    ct = min(Dc, (SMEM_MAX // elem - a_el - fixed) // (2 * Da * K))
-    if ct < 1:
-        raise ValueError(
-            f"transfer step Da={Da}, K={K}, Dc={Dc} ({dtype}) does not fit the "
-            f"kernel: its core alone needs {a_el * elem} of {SMEM_MAX} bytes of "
-            "shared memory"
-        )
-    budget = SMEM_DEFAULT if (a_el + per_z(ct)) * elem <= SMEM_DEFAULT else SMEM_MAX
-    zb = max(1, min(MAX_ZB, B, THREADS // (ct * Dc)))
-    zb = max(1, min(zb, (budget // elem - a_el) // per_z(ct)))
-    return zb, ct, (a_el + zb * per_z(ct)) * elem
+    zb = max(1, min(MAX_ZB, B, -(-B // NUM_SMS)))
+    while True:
+        stages = 2 if n > 1 and widest(zb, 2) >= 1 else 1
+        ct = widest(zb, stages)
+        if ct >= 1:
+            break
+        if zb == 1:
+            raise ValueError(
+                f"transfer sweep Da={Da}, K={K}, Dc={Dc} ({dtype}) does not fit the "
+                f"kernel: its core alone needs {Da * K * Dc * elem} of {SMEM_MAX} bytes "
+                "of shared memory with one batch entry"
+            )
+        zb = max(1, zb // 2)
+    strips = -(-Dc // ct)
+    ct = -(-Dc // strips)
+    tile = next(t for t in (4, 2, 1) if t == 1 or zb * Da * K * ct >= THREADS * t * t)
+    smem = elem * (stages * (Da * K * Dc + zb * K * K) + zb * (envs * Da * Da + 2 * Da * K * ct))
+    return SweepPlan(zb, ct, tile, stages, smem)
 
 
 # ---------------------------------------------------------------------------
-# plain versions (the kernels' arithmetic, in the same factorised order)
+# plain versions (the kernel's arithmetic, in the same factorised order)
 # ---------------------------------------------------------------------------
 
 
@@ -123,27 +154,53 @@ def _plain(env, a, mx, bra):
 
 
 def transfer_step_plain(env, a, mx):
-    """B3's function in plain PyTorch (any real dtype)."""
+    """B3's step in plain PyTorch (any real dtype)."""
     return _plain(env, a, mx, a)
 
 
 def transfer_step_complex_plain(env, a, mx):
-    """B4's function in plain PyTorch: the bra is ``conj(a)``."""
+    """B4's step in plain PyTorch: the bra is ``conj(a)``."""
     return _plain(env, a, mx, a.conj())
 
 
+def _sweep_plain(env0, a, mx, complex_: bool, backward: bool) -> torch.Tensor:
+    if backward:  # the d_env chain: sites reversed, cores transposed (conj for B4)
+        a, mx = a.flip(0).permute(0, 3, 2, 1), mx.flip(0)
+        if complex_:
+            a, mx = a.conj(), mx.conj()
+    outs, env = [], env0
+    for ai, mi in zip(a, mx):
+        env = _plain(env, ai, mi, ai.conj() if complex_ else ai)
+        outs.append(env)
+    out = torch.stack(outs)
+    return out.flip(0) if backward else out
+
+
+def transfer_sweep_plain(env0, a, mx, backward: bool = False):
+    """B3's sweep in plain PyTorch: ``out[i]`` is site i's env, ``[n, B, Dc,
+    Dc]``.  ``backward``: the d_env chain of the kernel, ``env0`` the
+    cotangent of the last env and ``out[i]`` that of site i's input."""
+    return _sweep_plain(env0, a, mx, False, backward)
+
+
+def transfer_sweep_complex_plain(env0, a, mx, backward: bool = False):
+    """B4's sweep in plain PyTorch (the bra is ``conj(a)``); as
+    :func:`transfer_sweep_plain`."""
+    return _sweep_plain(env0, a, mx, True, backward)
+
+
 # ---------------------------------------------------------------------------
-# kernel wrappers
+# kernel wrapper
 # ---------------------------------------------------------------------------
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
-    """The transfer-step library with its C signatures declared."""
+    """The transfer-sweep library with its C signatures declared."""
     lib = cuda_build.library("transfer_step")
     P, I = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.tneq_transfer_step_f32, lib.tneq_transfer_step_c64):
-        fn.argtypes = [I, P, P, P, I, I, I, I, I, I, P, P]
+    for fn in (lib.tneq_transfer_sweep_f32, lib.tneq_transfer_sweep_c64):
+        fn.argtypes = [I, P, P, P, I, I, I, I, I, I, I, I, I, I, P, P]
         fn.restype = I
     return lib
 
@@ -159,27 +216,27 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous, with its conjugation resolved")
 
 
-def _shapes(env, a, mx) -> Tuple[int, int, int, int]:
-    if env.dim() != 3 or a.dim() != 3 or mx.dim() != 3:
-        raise ValueError("transfer step takes env [B,Da,Da], a [Da,K,Dc], mx [B,K,K]")
-    B, Da, K, Dc = env.shape[0], a.shape[0], a.shape[1], a.shape[2]
-    return int(B), int(Da), int(K), int(Dc)
-
-
-def _launch(env, a, mx, complex_: bool) -> torch.Tensor:
-    """Launch B3 (``complex_=False``) or B4; same output as the plain version."""
+def _launch(env0, a, mx, complex_: bool, backward: bool = False) -> torch.Tensor:
+    """One launch of B3 (``complex_=False``) or B4 over the whole sweep; the
+    same output as :func:`_sweep_plain`."""
     dtype = torch.complex64 if complex_ else torch.float32
-    B, Da, K, Dc = _shapes(env, a, mx)
+    if env0.dim() != 3 or a.dim() != 4 or mx.dim() != 4:
+        raise ValueError("transfer sweep takes env0 [B,Da,Da], a [n,Da,K,Dc], mx [n,B,K,K]")
+    n, Da, K, Dc = (int(s) for s in a.shape)
+    B = int(env0.shape[0])
+    if backward:
+        Da, Dc = Dc, Da  # the step's own dims: it runs on the transposed cores
     dev = a.device
-    _check("env", env, (B, Da, Da), dtype, dev)
-    _check("a", a, (Da, K, Dc), dtype, dev)
-    _check("mx", mx, (B, K, K), dtype, dev)
-    zb, ct, _ = kernel_plan(B, Da, K, Dc, dtype)
-    out = torch.empty((B, Dc, Dc), dtype=dtype, device=dev)
-    fn = _lib().tneq_transfer_step_c64 if complex_ else _lib().tneq_transfer_step_f32
+    _check("env0", env0, (B, Da, Da), dtype, dev)
+    _check("a", a, tuple(a.shape), dtype, dev)
+    _check("mx", mx, (n, B, K, K), dtype, dev)
+    plan = kernel_plan(B, Da, K, Dc, dtype, n)
+    out = torch.empty((n, B, Dc, Dc), dtype=dtype, device=dev)
+    fn = _lib().tneq_transfer_sweep_c64 if complex_ else _lib().tneq_transfer_sweep_f32
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = fn(dev.index, env.data_ptr(), a.data_ptr(), mx.data_ptr(), B, Da, K, Dc,
-             zb, ct, out.data_ptr(), ctypes.c_void_p(stream))
+    err = fn(dev.index, env0.data_ptr(), a.data_ptr(), mx.data_ptr(), n, B, Da, K, Dc,
+             int(backward), plan.zb, plan.ct, plan.tile, plan.stages, out.data_ptr(),
+             ctypes.c_void_p(stream))
     name = "transfer_step_complex" if complex_ else "transfer_step"
     if err != 0:
         raise RuntimeError(f"{name} ({'B4' if complex_ else 'B3'}) launch failed: CUDA error {err}")
@@ -191,68 +248,98 @@ def _ready(t: torch.Tensor) -> torch.Tensor:
     return t.resolve_conj().contiguous()
 
 
-def _step(env, a, mx, complex_: bool) -> torch.Tensor:
-    """The plain version for CPU tensors, the kernel for CUDA tensors."""
+def _sweep(env0, a, mx, complex_: bool, backward: bool) -> torch.Tensor:
+    """Every env of the sweep, ``[n, B, Dc, Dc]``: the plain version for CPU
+    tensors, one kernel launch for CUDA tensors."""
     if a.device.type == "cpu":
-        return (transfer_step_complex_plain if complex_ else transfer_step_plain)(env, a, mx)
+        return _sweep_plain(env0, a, mx, complex_, backward)
     if a.device.type == "cuda":
-        return _launch(_ready(env), _ready(a), _ready(mx), complex_)
+        return _launch(_ready(env0), _ready(a), _ready(mx), complex_, backward)
     raise ValueError(f"no transfer-step path for device {a.device}")
 
 
-class _TransferStep(torch.autograd.Function):
-    """B3 forward; backward: ``d_env`` = B3 on the transposed core, ``d_a``
-    and ``d_mx`` by einsum (``pallas_kernels.py:250-262``)."""
+def _shifted(first: torch.Tensor, rest: torch.Tensor) -> torch.Tensor:
+    """``[first, rest[0], ..., rest[-2]]`` stacked; ``first[None]`` for one site."""
+    if rest.shape[0] == 1:
+        return first[None]
+    return torch.cat([first[None], rest[:-1]])
+
+
+def _param_grads(env, a, mx, g, complex_: bool, need_a: bool, need_mx: bool):
+    """``d_a [n,Da,K,Dc]`` and ``d_mx [n,B,K,K]`` of every site at once, as
+    pairwise contractions batched over the site axis n; ``env[i]`` is site
+    i's input env and ``g[i]`` the cotangent of its output (module
+    docstring for the complex convention)."""
+    cj = torch.conj if complex_ else (lambda x: x)
+    t1 = torch.einsum("nzab,nakc->nzbkc", env, a)
+    u = torch.einsum("nbld,nzcd->nzblc", a, g)
+    d_a = d_mx = None
+    if need_mx:
+        d_mx = torch.einsum("nzbkc,nzblc->nzkl", cj(t1), u)
+    if need_a:
+        v = torch.einsum("nzkl,nzblc->nzbkc", cj(mx), u)
+        t2 = torch.einsum("nzbkc,nzkl->nzblc", t1, mx)
+        d_a = (torch.einsum("nzab,nzbkc->nakc", cj(env), v)
+               + torch.einsum("nzblc,nzcd->nbld", t2, cj(g)))
+    return d_a, d_mx
+
+
+class _TransferSweep(torch.autograd.Function):
+    """Forward: one sweep launch, returning the last env.  Backward: one
+    launch of the same kernel for the d_env chain; ``d_a``/``d_mx`` by
+    :func:`_param_grads`."""
 
     @staticmethod
-    def forward(ctx, env, a, mx):
-        ctx.save_for_backward(env, a, mx)
-        return _step(env, a, mx, complex_=False)
+    def forward(ctx, env0, a, mx, complex_):
+        out = _sweep(env0, a, mx, complex_, backward=False)
+        ctx.complex_ = complex_
+        ctx.save_for_backward(env0, a, mx, out)
+        return out[-1]
 
     @staticmethod
     def backward(ctx, g):
-        env, a, mx = ctx.saved_tensors
+        env0, a, mx, out = ctx.saved_tensors
+        need_env, need_a, need_mx = ctx.needs_input_grad[:3]
+        n = a.shape[0]
         d_env = d_a = d_mx = None
-        if ctx.needs_input_grad[0]:
-            d_env = _step(g, a.permute(2, 1, 0), mx, complex_=False)
-        if ctx.needs_input_grad[1]:
-            d_a = (torch.einsum("zab,bld,zkl,zcd->akc", env, a, mx, g)
-                   + torch.einsum("zab,akc,zkl,zcd->bld", env, a, mx, g))
-        if ctx.needs_input_grad[2]:
-            d_mx = torch.einsum("zab,akc,bld,zcd->zkl", env, a, a, g)
-        return d_env, d_a, d_mx
+        genv = None  # genv[i]: the cotangent of site i's input env
+        if need_env or n > 1:
+            genv = _sweep(g, a, mx, ctx.complex_, backward=True)
+            if need_env:
+                d_env = genv[0]
+        if need_a or need_mx:
+            env_in = _shifted(env0, out)  # site i's input env
+            g_out = g[None] if n == 1 else torch.cat([genv[1:], g[None]])
+            d_a, d_mx = _param_grads(env_in, a, mx, g_out, ctx.complex_, need_a, need_mx)
+        return d_env, d_a, d_mx, None
 
 
-class _TransferStepComplex(torch.autograd.Function):
-    """B4 forward; backward derived for torch's complex convention (module
-    docstring), ``d_env`` through B4."""
+def transfer_sweep(env0: torch.Tensor, a: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """Differentiable real sweep ``[B,Da,Da], [n,Da,K,Dc], [n,B,K,K] ->
+    [B,Dc,Dc]``, the env after the last site (B3 on the card: one launch
+    forward, one backward)."""
+    return _TransferSweep.apply(env0, a, mx, False)
 
-    @staticmethod
-    def forward(ctx, env, a, mx):
-        ctx.save_for_backward(env, a, mx)
-        return _step(env, a, mx, complex_=True)
 
-    @staticmethod
-    def backward(ctx, g):
-        env, a, mx = ctx.saved_tensors
-        d_env = d_a = d_mx = None
-        if ctx.needs_input_grad[0]:
-            d_env = _step(g, a.conj().permute(2, 1, 0), mx.conj(), complex_=True)
-        if ctx.needs_input_grad[1]:
-            d_a = (torch.einsum("zab,bld,zkl,zcd->akc", env.conj(), a, mx.conj(), g)
-                   + torch.einsum("zab,akc,zkl,zcd->bld", env, a, mx, g.conj()))
-        if ctx.needs_input_grad[2]:
-            d_mx = torch.einsum("zab,akc,bld,zcd->zkl", env.conj(), a.conj(), a, g)
-        return d_env, d_a, d_mx
+def transfer_sweep_complex(env0: torch.Tensor, a: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
+    """Differentiable complex sweep with the bra ``conj(a)`` (B4 on the card)."""
+    return _TransferSweep.apply(env0, a, mx, True)
 
 
 def transfer_step(env: torch.Tensor, a: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
     """Differentiable real transfer step ``[B,Da,Da], [Da,K,Dc], [B,K,K] ->
-    [B,Dc,Dc]`` (B3 on the card)."""
-    return _TransferStep.apply(env, a, mx)
+    [B,Dc,Dc]``: the one-site :func:`transfer_sweep`."""
+    _check_step(env, a, mx)
+    return transfer_sweep(env, a[None], mx[None])
 
 
 def transfer_step_complex(env: torch.Tensor, a: torch.Tensor, mx: torch.Tensor) -> torch.Tensor:
-    """Differentiable complex transfer step with the bra ``conj(a)`` (B4 on
-    the card)."""
-    return _TransferStepComplex.apply(env, a, mx)
+    """Differentiable complex transfer step with the bra ``conj(a)``: the
+    one-site :func:`transfer_sweep_complex`."""
+    _check_step(env, a, mx)
+    return transfer_sweep_complex(env, a[None], mx[None])
+
+
+def _check_step(env, a, mx) -> None:
+    if env.dim() != 3 or a.dim() != 3 or mx.dim() != 3:
+        raise ValueError("transfer step takes env [B,Da,Da], a [Da,K,Dc], mx [B,K,K]")
