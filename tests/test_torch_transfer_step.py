@@ -139,10 +139,10 @@ def test_kernel_gates():
         ts.kernel_plan(8, 2, 2, 2, torch.float64)
     # the slice width, one site: four batch entries per block (128 blocks),
     # all columns at once, 2x2 register tiles, no second stage
-    assert ts.kernel_plan(512, 8, 4, 8, torch.float32) == (4, 8, 2, 1, 10496)
-    # wide D: 32 entries share a block's copy of A, in strips of columns
+    assert ts.kernel_plan(512, 8, 4, 8, torch.float32) == (4, 8, 2, 1, 11552)
+    # wide D: many entries share a block's copy of A, in strips of columns
     zb, ct, tile, stages, smem = ts.kernel_plan(4096, 16, 4, 16, torch.complex64)
-    assert zb == 32 and ct < 16 and tile == 4 and smem <= ts.SMEM_MAX
+    assert zb == 16 and ct == 8 and tile == 4 and smem <= ts.SMEM_MAX
     # one entry's intermediates outgrow shared memory: strips of columns
     zb, ct, _, _, smem = ts.kernel_plan(8, 64, 8, 64, torch.float32)
     assert zb == 1 and 1 <= ct < 64 and smem <= ts.SMEM_MAX

@@ -17,9 +17,9 @@
 // over a stack A [n, Da, K, Dc], Mx [n, B, K, K] writes every step's env:
 //     out[0] = step(env0, A[0], Mx[0]),  out[i] = step(out[i-1], A[i], Mx[i]).
 // Backward (the d_env chain): the sites in reverse, each core transposed
-// (2,1,0), and for B4 ket = op = conj, bra = identity (the step on
-// conj(A)^T and conj(Mx)); the result of site i is written to out[i], so
-// out[i] is the cotangent of site i's input env.
+// (2,1,0) as it is staged, and for B4 ket = op = conj, bra = identity (the
+// step on conj(A)^T and conj(Mx)); the result of site i is written to
+// out[i], so out[i] is the cotangent of site i's input env.
 //
 // Design.  The TPU forms the [D^2 K^2, B] outer product E = env (x) Mx and
 // runs ONE MXU matmul W[cd, abkl] @ E per 512-lane block (2 B D^4 K^2
@@ -36,11 +36,14 @@
 //     site to the next (two buffers: the column strips of site i write the
 //     next env while later strips still read this one).  Each out[i] is
 //     written to global memory once and never read back.
-//   * Prefetch.  A[i+1] and the group's Mx[i+1] do not depend on the carry:
-//     they are copied with cp.async into a second stage while site i
-//     computes (16-byte copies where aligned, element copies otherwise; the
+//   * Prefetch.  A[i] and the group's Mx[i] do not depend on the carry:
+//     they are copied with cp.async into a ring of up to 8 stages, one
+//     commit group per site, issued at the start for as many sites as the
+//     ring holds (all of a born_rule sweep) and refilled as sites finish
+//     (16-byte copies where aligned, element copies otherwise; the
 //     backward's transposed core is gathered element by element).  A site's
-//     chain holds only shared-memory arithmetic and three block barriers.
+//     chain then holds only shared-memory arithmetic and three block
+//     barriers, not a trip to L2 or HBM.
 //   * zb from the batch.  The plan (ops/transfer_step.kernel_plan) spreads
 //     the batch over the card's 132 SMs, up to 32 entries per block, so one
 //     copy of A per block and site serves many entries at wide D.
@@ -48,6 +51,7 @@
 //     of outputs (tile 1, 2 or 4 from the plan): per summed index it loads
 //     2*tile shared values for tile^2 FMAs.  Where one group's T1/T2 would
 //     outgrow shared memory, a site walks over strips of ct columns c.
+//     T1/T2 rows and entries have odd pitches against bank conflicts.
 //   * Summation order: each output sums its index from 0 upwards in one
 //     accumulator, as the plain version's loops do.  B4 uses native complex
 //     FMAs on float2, not the TPU's stacked real form.
@@ -71,6 +75,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory a block may use
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kMaxStages = 8;  // sites of A / Mx staged ahead
 
 struct Real {
   using T = float;
@@ -132,9 +137,41 @@ __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// Wait until at most `pending` of this thread's cp.async groups are in
+// flight (0 <= pending < kMaxStages - 1; anything else waits for all).
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+#define TNEQ_WAIT(N)                                                  \
+  case N:                                                             \
+    asm volatile("cp.async.wait_group " #N ";\n" ::: "memory"); \
+    break;
+    TNEQ_WAIT(1)
+    TNEQ_WAIT(2)
+    TNEQ_WAIT(3)
+    TNEQ_WAIT(4)
+    TNEQ_WAIT(5)
+    TNEQ_WAIT(6)
+#undef TNEQ_WAIT
+    default:
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
 }
+
+// x / d and x % d for 0 <= x < 2^24 by a float reciprocal and one
+// correction: a tile's index math on the chain of every site, without the
+// ~20-instruction integer division.
+struct FastDiv {
+  int d;
+  float inv;
+  __device__ __forceinline__ explicit FastDiv(int d_) : d(d_), inv(1.0f / (float)d_) {}
+  __device__ __forceinline__ int div(int x) const {
+    int q = __float2int_rz((float)x * inv);
+    const int r = x - q * d;
+    q += (r >= d) - (r < 0);
+    return q;
+  }
+  __device__ __forceinline__ int mod(int x) const { return x - div(x) * d; }
+};
 
 // Copy `count` contiguous elements to shared memory, spread over the block.
 template <class T>
@@ -149,6 +186,22 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, int count) {
   }
 }
 
+// The backward's core, logical A[a,k,c] = stored A[c,k,a] (stored
+// [Dc, K, Da]), gathered element by element into shared memory.  Kept out of
+// line so its index math does not weigh on the registers of the product
+// loops; it runs once per site.
+template <class T>
+__device__ __noinline__ void gather_transposed(T* dst, const T* src, int Da, int K, int Dc) {
+  const FastDiv fDc(Dc), fK(K);
+  for (int idx = threadIdx.x; idx < Da * K * Dc; idx += blockDim.x) {
+    const int ak = fDc.div(idx);  // aa * K + k
+    const int c = idx - ak * Dc;
+    const int aa = fK.div(ak);
+    const int k = ak - aa * K;
+    cp_async_elem(dst + idx, src + ((size_t)c * K + k) * Da + aa);
+  }
+}
+
 // P independent products C_p[m][n] = sum_q X_p[q*xq + m] * fy(Y_p[q*yq + n])
 // for m < M, n < N, q < Q, spread over the block in Tile x Tile register
 // tiles (n-tiles fastest).  bases(p, x, y) gives the product's operands;
@@ -158,13 +211,14 @@ template <class Ops, int Tile, class FY, class Bases, class Store>
 __device__ __forceinline__ void tile_products(int P, int M, int N, int Q, int xq, int yq,
                                               Bases bases, FY fy, Store store) {
   using T = typename Ops::T;
-  const int tm = (M + Tile - 1) / Tile;
-  const int tn = (N + Tile - 1) / Tile;
-  const int total = P * tm * tn;
+  const FastDiv tm((M + Tile - 1) / Tile);
+  const FastDiv tn((N + Tile - 1) / Tile);
+  const int total = P * tm.d * tn.d;
   for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int n0 = (t % tn) * Tile;
-    const int m0 = ((t / tn) % tm) * Tile;
-    const int p = t / (tn * tm);
+    const int mp = tn.div(t);  // m-tile + tm * p
+    const int n0 = (t - mp * tn.d) * Tile;
+    const int p = tm.div(mp);
+    const int m0 = (mp - p * tm.d) * Tile;
     const T* x;
     const T* y;
     bases(p, x, y);
@@ -179,7 +233,7 @@ __device__ __forceinline__ void tile_products(int P, int M, int N, int Q, int xq
     for (int r = 0; r < Tile; ++r)
 #pragma unroll
       for (int s = 0; s < Tile; ++s) acc[r][s] = Ops::zero();
-#pragma unroll 2
+#pragma unroll 4
     for (int q = 0; q < Q; ++q) {
       T xv[Tile], yv[Tile];
 #pragma unroll
@@ -199,6 +253,14 @@ __device__ __forceinline__ void tile_products(int P, int M, int N, int Q, int xq
   }
 }
 
+// T1 and T2 hold one entry's [Da, K, ct] strip with an odd row pitch
+// (ct | 1) and an odd pitch per entry, so the lanes of a warp that read
+// rows of several b or entries fall in different banks.
+__host__ __device__ inline int row_pitch(int ct) { return ct | 1; }
+__host__ __device__ inline int entry_pitch(int Da, int K, int ct) {
+  return (Da * K * row_pitch(ct)) | 1;
+}
+
 // Shared memory of one block, in elements (the plan in ops/transfer_step.py
 // computes the same): `stages` copies of A and of the group's Mx, `envs`
 // env buffers (2 when the sweep has more than one site), T1 and T2.
@@ -206,7 +268,7 @@ __host__ __device__ inline size_t smem_elems(int n, int Da, int K, int Dc, int z
                                              int stages) {
   const int envs = n > 1 ? 2 : 1;
   return (size_t)stages * ((size_t)Da * K * Dc + (size_t)zb * K * K) +
-         (size_t)zb * ((size_t)envs * Da * Da + 2 * (size_t)Da * K * ct);
+         (size_t)zb * ((size_t)envs * Da * Da + 2 * (size_t)entry_pitch(Da, K, ct));
 }
 
 template <class Ops, bool Backward, int Tile>
@@ -223,43 +285,41 @@ transfer_sweep_kernel(const typename Ops::T* __restrict__ env0,
   const int DKC = DK * Dc;
   const int KK = K * K;
   const int DD = Da * Da;
-  T* sA = reinterpret_cast<T*>(smem_raw);  // [stages][Da, K, Dc] (logical layout)
+  T* sA = reinterpret_cast<T*>(smem_raw);  // [stages][Da, K, Dc] (logical layout), a ring
   T* sMx = sA + stages * DKC;              // [stages][zb, K, K]
   T* sEnv = sMx + stages * zb * KK;        // [envs][zb, Da, Da]
-  T* sT1 = sEnv + (n > 1 ? 2 : 1) * zb * DD;  // [zb, Da, K, ct]
-  T* sT2 = sT1 + zb * DK * ct;                // [zb, Da, K, ct]
+  const int rp = row_pitch(ct);
+  const int ep = entry_pitch(Da, K, ct);
+  T* sT1 = sEnv + (n > 1 ? 2 : 1) * zb * DD;  // [zb][Da, K][ct], pitches rp, ep
+  T* sT2 = sT1 + zb * ep;                     // [zb][Da, K][ct], pitches rp, ep
 
   const int z0 = blockIdx.x * zb;
   const int nz = min(zb, B - z0);
+  const FastDiv fK(K), fDa(Da);
 
   // Stage site s (sweep order) into buffer st and commit it as one group.
   auto load_site = [&](int s, int st) {
     const int i = Backward ? n - 1 - s : s;
-    const T* ai = a + (size_t)i * DKC;
-    T* dA = sA + st * DKC;
-    if (Backward) {
-      // logical A[a,k,c] = stored A[c,k,a]
-      for (int idx = threadIdx.x; idx < DKC; idx += blockDim.x) {
-        const int c = idx % Dc;
-        const int k = (idx / Dc) % K;
-        const int aa = idx / (Dc * K);
-        cp_async_elem(dA + idx, ai + ((size_t)c * K + k) * Da + aa);
-      }
-    } else {
-      copy_async(dA, ai, DKC);
-    }
+    if (Backward)
+      gather_transposed(sA + st * DKC, a + (size_t)i * DKC, Da, K, Dc);
+    else
+      copy_async(sA + st * DKC, a + (size_t)i * DKC, DKC);
     copy_async(sMx + st * zb * KK, mx + ((size_t)i * B + z0) * KK, nz * KK);
     cp_async_commit();
   };
 
+  // Prologue: env0 and the first `stages` sites, one group per site.
   copy_async(sEnv, env0 + (size_t)z0 * DD, nz * DD);
-  load_site(0, 0);
+  for (int s = 0; s < min(n, stages); ++s) load_site(s, s);
 
   for (int s = 0; s < n; ++s) {
-    const int st = stages > 1 ? (s & 1) : 0;
-    cp_async_wait_all();
+    const int st = s % stages;
+    // sites staged so far: the prologue's, one more per site since site 1
+    const int issued = stages == 1 ? s + 1 : min(n, stages + max(s - 1, 0));
+    cp_async_wait(issued - s - 1);
     __syncthreads();  // site s staged; every thread is done with site s-1
-    if (stages > 1 && s + 1 < n) load_site(s + 1, st ^ 1);
+    if (stages > 1 && s > 0 && s + stages - 1 < n)
+      load_site(s + stages - 1, (s - 1) % stages);  // into site s-1's buffer
 
     const int i = Backward ? n - 1 - s : s;
     const T* A_ = sA + st * DKC;
@@ -274,29 +334,34 @@ transfer_sweep_kernel(const typename Ops::T* __restrict__ env0,
       tile_products<Ops, Tile>(
           nz * K, Da, w, Da, Da, K * Dc,
           [&](int p, const T*& x, const T*& y) {
-            x = E_ + (p / K) * DD;
-            y = A_ + (p % K) * Dc + c0;
+            x = E_ + fK.div(p) * DD;
+            y = A_ + fK.mod(p) * Dc + c0;
           },
           [](T v) { return R::ket(v); },
           [&](int p, int b, int j, T v) {
-            sT1[(((p / K) * Da + b) * K + p % K) * ct + j] = v;
+            const int zz = fK.div(p);
+            sT1[zz * ep + (b * K + p - zz * K) * rp + j] = v;
           });
       __syncthreads();
       // T2[zz,b,l,j] = sum_k T1[zz,b,k,j] op(Mx)[zz,k,l]; product (zz, b)
       tile_products<Ops, Tile>(
-          nz * Da, w, K, K, ct, K,
+          nz * Da, w, K, K, rp, K,
           [&](int p, const T*& x, const T*& y) {
-            x = sT1 + p * K * ct;
-            y = M_ + (p / Da) * KK;
+            const int zz = fDa.div(p);
+            x = sT1 + zz * ep + (p - zz * Da) * K * rp;
+            y = M_ + zz * KK;
           },
           [](T v) { return R::op(v); },
-          [&](int p, int j, int l, T v) { sT2[(p * K + l) * ct + j] = v; });
+          [&](int p, int j, int l, T v) {
+            const int zz = fDa.div(p);
+            sT2[zz * ep + ((p - zz * Da) * K + l) * rp + j] = v;
+          });
       __syncthreads();
       // out[zz,c0+j,d] = sum_{b,l} T2[zz,b,l,j] bra(A)[b,l,d]; product zz
       tile_products<Ops, Tile>(
-          nz, w, Dc, DK, ct, Dc,
+          nz, w, Dc, DK, rp, Dc,
           [&](int p, const T*& x, const T*& y) {
-            x = sT2 + p * DK * ct;
+            x = sT2 + p * ep;
             y = A_;
           },
           [](T v) { return R::bra(v); },
@@ -358,7 +423,7 @@ int launch(int device, const void* env0, const void* a, const void* mx, int n, i
            void* out, void* stream) {
   using T = typename Ops::T;
   if (n < 1 || B < 1 || Da < 1 || K < 1 || Dc < 1 || zb < 1 || ct < 1 || ct > Dc ||
-      stages < 1 || stages > 2 || (n > 1 && Da != Dc))
+      stages < 1 || stages > kMaxStages || stages > n || (n > 1 && Da != Dc))
     return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(T) * smem_elems(n, Da, K, Dc, zb, ct, stages);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;

@@ -20,12 +20,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..graph.dsl import CircuitGraph
-from .transfer_step import (
-    transfer_step,
-    transfer_step_complex,
-    transfer_sweep,
-    transfer_sweep_complex,
-)
+from .transfer_step import transfer_sweep, transfer_sweep_complex
 
 __all__ = ["is_mps_chain", "mps_sweep_siamese_fn"]
 
@@ -54,21 +49,17 @@ def _einsum_step(env, a, mx, conj):
     return torch.einsum("zab,akc,zkl,bld->zcd", env, a, mx, conj(a))
 
 
-def _kernel_step(env, a, mx, conj):
-    if env.is_complex() or a.is_complex():
-        c64 = torch.complex64
-        out = transfer_step_complex(env.to(c64), a.to(c64), mx.to(c64))
-        return out.to(env.dtype)  # complex128 sweeps carry on promoted, as in JAX
-    return transfer_step(env, a, mx)
-
-
 def _kernel_sweep(env, a, mx):
-    """All middle steps at once: ``a [n, D, K, D]``, ``mx [n, B, K, K]``."""
+    """The steps of ``a [n, Da, K, Dc]``, ``mx [n, B, K, K]`` in one sweep."""
     if env.is_complex() or a.is_complex():
         c64 = torch.complex64
         out = transfer_sweep_complex(env.to(c64), a.to(c64), mx.to(c64))
-        return out.to(env.dtype)
+        return out.to(env.dtype)  # complex128 sweeps carry on promoted, as in JAX
     return transfer_sweep(env, a, mx)
+
+
+def _kernel_step(env, a, mx, conj):
+    return _kernel_sweep(env, a[None], mx[None])
 
 
 def mps_sweep_siamese_fn(

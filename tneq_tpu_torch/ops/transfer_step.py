@@ -66,6 +66,8 @@ THREADS = 256  # threads per block (csrc/transfer_step.cu kThreads)
 SMEM_MAX = 232448  # dynamic shared memory one block may use on an H100
 NUM_SMS = 132  # streaming multiprocessors of an H100 SXM
 MAX_ZB = 32  # batch entries per block
+MAX_STAGES = 8  # sites staged ahead (csrc/transfer_step.cu kMaxStages)
+MIN_STRIP = 8  # narrower strips leave a block's tiles half empty: fewer entries instead
 
 # launches of the sweep kernel, by dtype, counted by the wrapper where it launches
 _LAUNCHES: Dict[str, int] = {"transfer_step": 0, "transfer_step_complex": 0}
@@ -91,8 +93,20 @@ class SweepPlan(NamedTuple):
     zb: int  # batch entries per block
     ct: int  # width of the strip of output columns c a site computes at a time
     tile: int  # each thread's register tile is tile x tile outputs
-    stages: int  # buffers of A / Mx: 2 prefetches the next site, 1 does not
+    stages: int  # sites of A / Mx staged ahead in a ring (1: no prefetch)
     smem: int  # bytes of shared memory per block
+
+
+def _smem_bytes(n: int, Da: int, K: int, Dc: int, dtype: torch.dtype, zb: int, ct: int,
+               stages: int) -> int:
+    """Shared memory of one block (``csrc/transfer_step.cu`` ``smem_elems``):
+    ``stages`` copies of A and of the group's Mx, one env buffer per entry
+    (two when ``n > 1``), and T1/T2, whose rows (``ct | 1``) and entries
+    have odd pitches against bank conflicts."""
+    envs = 2 if n > 1 else 1
+    entry = (Da * K * (ct | 1)) | 1
+    elems = stages * (Da * K * Dc + zb * K * K) + zb * (envs * Da * Da + 2 * entry)
+    return elems * (8 if dtype.is_complex else 4)
 
 
 def kernel_plan(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1) -> SweepPlan:
@@ -100,46 +114,47 @@ def kernel_plan(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1
     [Da,K,Dc] -> [B,Dc,Dc]``, decided by shape and dtype alone.
 
     ``zb`` spreads the batch over the card's SMs (one block each, at most
-    ``MAX_ZB`` entries).  Shared memory holds ``stages`` copies of A and of
-    the group's Mx, one env buffer (two when ``n > 1``) per entry, and T1/T2
-    (``2*Da*K*ct`` per entry); ``ct = Dc`` where that fits, else the
-    columns are cut into the fewest balanced strips that do.  Prefetch
-    (``stages = 2``) where ``n > 1`` and it fits; ``zb`` halves until one
-    column fits.  ``tile`` is the largest of 4, 2, 1 that still gives every
-    thread a tile of T1.  Raises ``ValueError`` when even one entry with a
-    one-column strip does not fit."""
+    ``MAX_ZB`` entries).  ``ct = Dc`` where that fits in shared memory, else
+    the columns are cut into the fewest balanced strips that do, with a
+    second stage of A / Mx where ``n > 1`` (prefetch) if it fits; ``zb``
+    halves until a strip of ``MIN_STRIP`` columns (or all of them) fits.
+    Then the ring grows to as many stages as fit, up to ``n`` and
+    ``MAX_STAGES``.  ``tile`` is the largest of 4, 2, 1 no wider than the
+    strip that still gives every thread a tile of T1.  Raises
+    ``ValueError`` when even one entry with a one-column strip does not
+    fit."""
     if not kernel_supported(dtype):
         raise ValueError(f"the transfer-sweep kernels take float32 or complex64, got {dtype}")
     if min(n, B, Da, K, Dc) < 1:
         raise ValueError(f"empty transfer sweep: n={n}, B={B}, Da={Da}, K={K}, Dc={Dc}")
     if n > 1 and Da != Dc:
         raise ValueError(f"a sweep of {n} sites needs square cores, got Da={Da}, Dc={Dc}")
-    elem = 8 if dtype.is_complex else 4
-    room = SMEM_MAX // elem
-    envs = 2 if n > 1 else 1
+
+    def fits(zb: int, ct: int, stages: int) -> bool:
+        return _smem_bytes(n, Da, K, Dc, dtype, zb, ct, stages) <= SMEM_MAX
 
     def widest(zb: int, stages: int) -> int:
-        free = room - stages * (Da * K * Dc + zb * K * K) - zb * envs * Da * Da
-        return min(Dc, free // (zb * 2 * Da * K))
+        """The widest balanced strip that fits, 0 if none."""
+        return next((-(-Dc // k) for k in range(1, Dc + 1) if fits(zb, -(-Dc // k), stages)), 0)
 
     zb = max(1, min(MAX_ZB, B, -(-B // NUM_SMS)))
     while True:
-        stages = 2 if n > 1 and widest(zb, 2) >= 1 else 1
+        stages = 2 if n > 1 and widest(zb, 2) else 1
         ct = widest(zb, stages)
-        if ct >= 1:
+        if ct >= min(Dc, MIN_STRIP) or (ct and zb == 1):
             break
         if zb == 1:
             raise ValueError(
                 f"transfer sweep Da={Da}, K={K}, Dc={Dc} ({dtype}) does not fit the "
-                f"kernel: its core alone needs {Da * K * Dc * elem} of {SMEM_MAX} bytes "
-                "of shared memory with one batch entry"
+                f"kernel: its core alone needs {Da * K * Dc * (8 if dtype.is_complex else 4)} "
+                f"of {SMEM_MAX} bytes of shared memory with one batch entry"
             )
         zb = max(1, zb // 2)
-    strips = -(-Dc // ct)
-    ct = -(-Dc // strips)
-    tile = next(t for t in (4, 2, 1) if t == 1 or zb * Da * K * ct >= THREADS * t * t)
-    smem = elem * (stages * (Da * K * Dc + zb * K * K) + zb * (envs * Da * Da + 2 * Da * K * ct))
-    return SweepPlan(zb, ct, tile, stages, smem)
+    while stages > 1 and stages < min(n, MAX_STAGES) and fits(zb, ct, stages + 1):
+        stages += 1
+    tile = next(t for t in (4, 2, 1)
+                if t == 1 or (t <= ct and zb * Da * K * ct >= THREADS * t * t))
+    return SweepPlan(zb, ct, tile, stages, _smem_bytes(n, Da, K, Dc, dtype, zb, ct, stages))
 
 
 # ---------------------------------------------------------------------------
@@ -258,13 +273,6 @@ def _sweep(env0, a, mx, complex_: bool, backward: bool) -> torch.Tensor:
     raise ValueError(f"no transfer-step path for device {a.device}")
 
 
-def _shifted(first: torch.Tensor, rest: torch.Tensor) -> torch.Tensor:
-    """``[first, rest[0], ..., rest[-2]]`` stacked; ``first[None]`` for one site."""
-    if rest.shape[0] == 1:
-        return first[None]
-    return torch.cat([first[None], rest[:-1]])
-
-
 def _param_grads(env, a, mx, g, complex_: bool, need_a: bool, need_mx: bool):
     """``d_a [n,Da,K,Dc]`` and ``d_mx [n,B,K,K]`` of every site at once, as
     pairwise contractions batched over the site axis n; ``env[i]`` is site
@@ -308,7 +316,8 @@ class _TransferSweep(torch.autograd.Function):
             if need_env:
                 d_env = genv[0]
         if need_a or need_mx:
-            env_in = _shifted(env0, out)  # site i's input env
+            # site i's input env, and the cotangent of its output
+            env_in = env0[None] if n == 1 else torch.cat([env0[None], out[:-1]])
             g_out = g[None] if n == 1 else torch.cat([genv[1:], g[None]])
             d_a, d_mx = _param_grads(env_in, a, mx, g_out, ctx.complex_, need_a, need_mx)
         return d_env, d_a, d_mx, None
