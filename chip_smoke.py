@@ -36,7 +36,18 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    sweep backward), B4 = 0;
 7. cli — ``apps.train_single_node.main`` at its defaults (complex64, 8
    qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 2 launches per step,
-   finite losses, the first 20 against the same run on the host.
+   finite losses, the first 20 against the same run on the host;
+8. brick — the reference experiment's default at full width: the 8-qubit,
+   5-cell, rank-2 brick wall (35 cores), complex64, SGD-G, dense fidelity,
+   the planted 20-core mask.  Its dense target (4^8 entries) against the
+   host's from the same cores; the validation fit at its default budget
+   (<= 4000 steps, lr 1) to 1 - F < 1e-3; the first 20 validation losses
+   against the host's loss at the card's cores; one pass of the prune loop
+   warm-started from the validated fit, its prune budget cut to
+   ``BRICK_PRUNE_STEPS``; fit steps/s, launches per fit step and the device
+   idle share from torch.profiler; then the experiment's CLI at 4 qubits x
+   2 cells in a process of its own.  This path runs no kernel of the port:
+   every contraction is pairwise ``torch.einsum`` steps.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -75,6 +86,16 @@ BORN_STEPS = 200
 CLI_STEPS = 200
 CHECK_STEPS = 20  # card-vs-host comparisons of the two training phases
 MIDDLE_STEPS = 5  # sites of the transfer sweep of an 8-qubit chain
+# the brick phase: the reference CLI's planted mask of the 8 x 5 wall, and
+# the cuts that keep the phase near 150 s (the defaults are 5000 prune
+# steps and, for the CLI, 20 restarts)
+BRICK_MASK = [2, 3, 5, 8, 9, 12, 13, 14, 15, 17, 18, 20, 21, 23, 25, 26, 29, 31, 32, 33]
+BRICK_PRUNE_STEPS = 60
+BRICK_CLI_PRUNE_STEPS = 100
+TOL_TARGET = 1e-5  # dense target, card vs host, max-abs-normalised
+# 1 - F ~ 1e-3 at the validated cores, card vs host, absolute: F ~ 0.999 in
+# float32 carries ~1e-7 of rounding per summation order
+TOL_FIT_INFID = 5e-6
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -714,6 +735,124 @@ def phase_cli(smi: str) -> dict:
     return rec
 
 
+def phase_brick(smi: str) -> dict:
+    import torch
+
+    from tneq_tpu_torch.apps.symmetry_breaking import (
+        SymmetryBreakingConfig, make_experiment, symmetry_breaking, target_tensor_init,
+        validate_target_tensor,
+    )
+    from tneq_tpu_torch.model.qctn import params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.ops import chain_overlap, transfer_step
+
+    cfg = SymmetryBreakingConfig(device="cuda", max_outer_iterations=1,
+                                 prune_steps=BRICK_PRUNE_STEPS)
+    exp = make_experiment(cfg)
+    host = make_experiment(replace(cfg, device="cpu"))
+    check(exp.graph.ncores == 35 and cfg.dtype == torch.complex64,
+          f"brick: {exp.graph.ncores} cores in {cfg.dtype}")
+    chain_overlap.reset_launch_counts()
+    transfer_step.reset_launch_counts()
+    t_start = time.perf_counter()
+
+    # the dense target from the same cores (drawn on the host), then the
+    # validation's fresh cores from the same generator, as the CLI draws them
+    gen = torch.Generator().manual_seed(0)
+    target = target_tensor_init(exp, BRICK_MASK, gen)
+    torch.cuda.synchronize()
+    target_h = target_tensor_init(host, BRICK_MASK, 0)
+    check(tuple(target.shape) == (2,) * 16 and bool(torch.isfinite(target).all()),
+          f"brick: target of shape {tuple(target.shape)}")
+    target_err = rel_err(target.cpu(), target_h)
+    check(target_err <= TOL_TARGET, f"brick: target card vs host, rel {target_err}")
+
+    # validation at the default budget
+    t0 = time.perf_counter()
+    ok, fid, vsteps, fitted = validate_target_tensor(exp, target, gen, return_params=True)
+    torch.cuda.synchronize()
+    dt_val = time.perf_counter() - t0
+    check(ok and 1.0 - fid < 1e-3, f"brick: validation 1 - F = {1.0 - fid} in {vsteps} steps")
+
+    # the first validation steps on the card, keeping their cores; the
+    # host's 1 - F at those cores must equal the card's
+    dc, dh = exp.validate_fit.drivers, host.validate_fit.drivers
+    params = exp.init_params(2)
+    opt = dc.optimizer.init(params)
+    mask_c, mask_h = exp.mask_vector([]), host.mask_vector([])
+    card, host_at_card = [], []
+    for _ in range(CHECK_STEPS):
+        cores = params_to_numpy(params)
+        params, opt, infid = dc.step(params, opt, mask_c, target)
+        card.append(float(infid))
+        p_h = params_from_numpy(cores, "cpu")
+        host_at_card.append(float(dh.step(p_h, dh.optimizer.init(p_h), mask_h, target_h)[2]))
+    rel_first = [abs(c - h) / abs(h) for c, h in zip(card, host_at_card)]
+    check(max(rel_first) <= TOL_STEP0,
+          f"brick: card 1 - F vs host 1 - F at the same cores, rel {max(rel_first)}")
+    # from a random start F ~ 4^-8, so 1 - F sits near 1 for those steps;
+    # at the validated cores 1 - F ~ 1e-3 and the two must agree in absolute
+    infid_fit = float(dc.step(fitted, dc.optimizer.init(fitted), mask_c, target)[2])
+    p_h = params_from_numpy(params_to_numpy(fitted), "cpu")
+    infid_fit_h = float(dh.step(p_h, dh.optimizer.init(p_h), mask_h, target_h)[2])
+    check(abs(infid_fit - infid_fit_h) <= TOL_FIT_INFID,
+          f"brick: 1 - F at the validated cores, card {infid_fit} vs host {infid_fit_h}")
+
+    # one pass of the prune loop, warm-started from the validated fit
+    t0 = time.perf_counter()
+    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0, warm_params=fitted,
+                                         verbose=False)
+    torch.cuda.synchronize()
+    dt_prune = time.perf_counter() - t0
+    seconds = time.perf_counter() - t_start
+    kernel_launches = {**chain_overlap.launch_counts(), **transfer_step.launch_counts()}
+
+    box = {"p": fitted, "o": dc.optimizer.init(fitted)}
+
+    def one_step():
+        box["p"], box["o"], m = dc.step(box["p"], box["o"], mask_c, target)
+        float(m)  # the exit test's host sync, as in the fit loop
+
+    prof = _profile_steps(one_step, dt_val / vsteps * 1e3)
+
+    # the experiment's CLI, in a process of its own
+    cli = [sys.executable, "-m", "tneq_tpu_torch.apps.symmetry_breaking", "--n-qubits", "4",
+           "--n-cells", "2", "--restarts", "1", "--prune-steps", str(BRICK_CLI_PRUNE_STEPS)]
+    t0 = time.perf_counter()
+    out = subprocess.run(cli, capture_output=True, text=True, timeout=400)
+    dt_cli = time.perf_counter() - t0
+    print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
+    check(out.returncode == 0 and "best: pruned" in out.stdout,
+          f"brick: the CLI exited {out.returncode}")
+    rec = {
+        "phase": "brick",
+        "program": "apps.symmetry_breaking defaults: brick wall 8 qubits x 5 cells, rank 2, "
+                   "complex64, sgdg (validate lr 1, <= 4000 steps; prune lr 1e-2), dense "
+                   "fidelity, tol 1e-3, planted mask of the reference CLI",
+        "reduced": {"prune_steps": BRICK_PRUNE_STEPS, "max_outer_iterations": 1,
+                    "cli": {"prune_steps": BRICK_CLI_PRUNE_STEPS, "restarts": 1}},
+        "target_rel_err": target_err,
+        "validated": ok,
+        "validate_infidelity": 1.0 - fid,
+        "validate_steps": vsteps,
+        "validate_seconds": dt_val,
+        "fit_steps_per_s": vsteps / dt_val,
+        "first_infidelities_card": card,
+        "host_at_card_rel_err_max": max(rel_first),
+        "validated_infidelity_card_host": [infid_fit, infid_fit_h],
+        "pruned": sorted(pruned),
+        "attempts": attempts,
+        "prune_seconds": dt_prune,
+        "seconds": seconds,
+        "port_kernel_launches": kernel_launches,
+        "profile": prof,
+        "cli_seconds": dt_cli,
+        "cli_last_line": out.stdout.strip().splitlines()[-1],
+        "card": smi,
+    }
+    emit(rec)
+    return rec
+
+
 def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
     rows = []
@@ -795,6 +934,7 @@ def main() -> int:
         transfer = phase_transfer_kernels()
         born = phase_born_rule(setup["nvidia_smi"])
         cli = phase_cli(setup["nvidia_smi"])
+        phase_brick(setup["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

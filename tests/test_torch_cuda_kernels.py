@@ -1,5 +1,6 @@
 """The sweep kernels B1/B2 and the transfer-sweep kernels B3/B4 on the card
-against their plain versions.
+against their plain versions; the gate of B3/B4 and the pairwise einsum
+path on the card against the host.
 
 These tests need a CUDA card and skip without one; they import no JAX, so
 they run on the machine with the card with the repository's conftest left
@@ -219,3 +220,37 @@ def test_transfer_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ts.transfer_sweep_complex(*big)
     with pytest.raises(ValueError, match="float32"):
         ts.transfer_step(env.double(), a[0].double(), mx[0].double())
+
+
+# ---------------------------------------------------------------------------
+# the gate of B3/B4 (ROADMAP C1) and the brick-wall contraction on the card
+# ---------------------------------------------------------------------------
+
+
+def test_wide_cores_train_on_the_card_without_the_kernel(dev):
+    """``train_single_node --dim 32``: complex64 cores of 32 x 32 x 32 x 32
+    outgrow B4's shared memory, so the sweep steps through torch.einsum."""
+    import contextlib
+    import io
+
+    from tneq_tpu_torch.apps.train_single_node import main
+
+    ts.reset_launch_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        stats = main(["--dim", "32", "--steps", "3", "--device", "cuda"])
+    assert stats.steps == 3 and np.isfinite(stats.losses).all()
+    assert ts.launch_counts() == {"transfer_step": 0, "transfer_step_complex": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_brick_wall_contraction_on_the_card_matches_the_host(dev, dtype):
+    from tneq_tpu_torch.graph import build_brick_wall_incidence, incidence_to_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params
+    from tneq_tpu_torch.ops.contract import contract_cores
+
+    g = parse_graph(incidence_to_graph(build_brick_wall_incidence(8, 5, 2)))
+    host = init_params(g, 0, dtype, device="cpu")
+    card = contract_cores(g, {k: v.to(dev) for k, v in host.items()})
+    ref = contract_cores(g, host)
+    assert card.is_cuda and card.shape == ref.shape == (2,) * 16
+    assert _rel(card.cpu(), ref) <= 1e-5

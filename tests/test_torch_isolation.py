@@ -56,6 +56,9 @@ def test_entry_points_default_to_the_card():
         from tneq_tpu_torch.train.trainer import Trainer
 
         assert Trainer(g).device.type == "cuda"
+        from tneq_tpu_torch.apps.symmetry_breaking import make_experiment
+
+        assert make_experiment().device.type == "cuda"
         assert all(v.is_cuda for v in QCTN(mps_graph(4, dim=2)).params.values())
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -69,6 +72,13 @@ def test_entry_points_default_to_the_card():
 
     with pytest.raises(RuntimeError):
         make_experiment(SymmetryBreakingConfig(topology="mps", fidelity_mode="network"))
+    # the brick-wall default, through the app and its CLI
+    from tneq_tpu_torch.apps.symmetry_breaking import main as brick_main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_experiment()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        brick_main(["--n-qubits", "4", "--n-cells", "2", "--restarts", "1"])
     from tneq_tpu_torch.apps.train_single_node import main
     from tneq_tpu_torch.model.qctn import QCTN
     from tneq_tpu_torch.train.trainer import Trainer

@@ -134,14 +134,100 @@ def test_compile_siamese_dispatch():
     assert compile_siamese(chain)[1] == "mps_sweep_cuda"
     assert compile_siamese(chain, use_kernel=False)[1] == "mps_sweep"
     assert compile_siamese(chain, mode="mps_sweep")[1] == "mps_sweep_cuda"
+    # JAX's "einsum_xla": the pairwise einsum path (tests/test_torch_contract.py)
     for kw in ({"mode": "einsum"}, {"states_batched": True}, {"measure_extra_dims": 2}):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            compile_siamese(chain, **kw)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        compile_siamese(wall)
+        assert compile_siamese(chain, **kw)[1] == "einsum_pairwise"
+    assert compile_siamese(wall)[1] == "einsum_pairwise"
     with pytest.raises(NotImplementedError, match="item 11"):
         compile_siamese(chain, mode="sliced")
     with pytest.raises(ValueError, match="not an MPS chain"):
         compile_siamese(wall, mode="mps_sweep")
     with pytest.raises(ValueError, match="unknown mode"):
         compile_siamese(chain, mode="bogus")
+
+
+# ---------------------------------------------------------------------------
+# the gate of B3/B4 (ROADMAP C1): dtype and shape decide, nothing is cast
+# ---------------------------------------------------------------------------
+
+from tneq_tpu_torch.ops import mps_sweep as ms  # noqa: E402
+
+
+def _spy(monkeypatch):
+    """Count the sweeps that take the kernel and the steps that take the
+    einsum."""
+    calls = {"kernel": 0, "einsum": 0}
+
+    def counted(name, fn):
+        def wrapper(*args):
+            calls[name] += 1
+            return fn(*args)
+        return wrapper
+
+    monkeypatch.setattr(ms, "_kernel_sweep", counted("kernel", ms._kernel_sweep))
+    monkeypatch.setattr(ms, "_einsum_step", counted("einsum", ms._einsum_step))
+    return calls
+
+
+def _chain_value(g, p_np, states, x, dtype, remat=False):
+    mx = measurement_matrices(torch.as_tensor(x), g.output_ranks[0]).to(dtype)
+    fn = mps_sweep_siamese_fn(g, use_kernel=True, remat=remat)
+    return fn(params_from_numpy(p_np, "cpu", dtype), [torch.as_tensor(s).to(dtype) for s in states],
+              [mx[:, q] for q in range(g.nqubits)])
+
+
+def _j_chain_value(g_src, p_np, states, x, K, jdt):
+    mx = j_mx(jnp.asarray(x), K).astype(jdt)
+    fn = j_sweep(j_parse(g_src))
+    with jax.default_matmul_precision("highest"):
+        return np.asarray(fn({k: jnp.asarray(v).astype(jdt) for k, v in p_np.items()},
+                             [jnp.asarray(s).astype(jdt) for s in states],
+                             [mx[:, q] for q in range(mx.shape[1])]))
+
+
+# (64, 16) float32 and (32, 32) complex64: one core needs 262144 bytes of
+# shared memory, more than a block of an H100 has (232448)
+@pytest.mark.parametrize("remat", [False, True])
+@pytest.mark.parametrize("D,K,dtype", [(64, 16, torch.float32), (32, 32, torch.complex64)])
+def test_wide_cores_take_the_einsum_step(monkeypatch, D, K, dtype, remat):
+    assert not ts.kernel_fits(2, D, K, D, dtype, 2)
+    assert ts.kernel_fits(2, 8, 4, 8, dtype, 2)
+    src = mps_graph(5, D, phys=K)
+    g = t_parse(src)
+    p_np = params_to_numpy(init_params(g, 0, dtype, device="cpu"))
+    rng = np.random.default_rng(0)
+    states = [rng.standard_normal(K).astype(NP_DT[dtype]) for _ in range(5)]
+    x = rng.standard_normal((2, 5)).astype(np.float32)
+    calls = _spy(monkeypatch)
+    val = _chain_value(g, p_np, states, x, dtype, remat=remat)
+    assert calls == {"kernel": 0, "einsum": 2}  # both middle sites, step by step
+    ref = _j_chain_value(src, p_np, states, x, K, jnp.complex64 if dtype.is_complex else jnp.float32)
+    np.testing.assert_allclose(val.detach().numpy(), ref, rtol=RTOL_V, atol=RTOL_V * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
+def test_double_precision_chains_take_the_einsum_step(monkeypatch, dtype):
+    n, dim = 6, 3
+    g = t_parse(mps_graph(n, dim=dim))
+    low = torch.complex64 if dtype.is_complex else torch.float32
+    p_np = params_to_numpy(init_params(g, 0, low, device="cpu"))
+    rng = np.random.default_rng(0)
+    states = [rng.standard_normal(dim).astype(NP_DT[low]) for _ in range(n)]
+    x = rng.standard_normal((4, n)).astype(np.float32)
+    calls = _spy(monkeypatch)
+    val = _chain_value(g, p_np, states, x, dtype)
+    assert val.dtype == dtype  # complex128 is never cast down
+    assert calls == {"kernel": 0, "einsum": 3}
+    # the same einsum steps as the plain path, and JAX's value to f32 rounding
+    mx = measurement_matrices(torch.as_tensor(x), dim).to(dtype)
+    plain = mps_sweep_siamese_fn(g, use_kernel=False)(
+        params_from_numpy(p_np, "cpu", dtype), [torch.as_tensor(s).to(dtype) for s in states],
+        [mx[:, q] for q in range(n)])
+    torch.testing.assert_close(val, plain, rtol=0, atol=0)
+    ref = _j_chain_value(mps_graph(n, dim=dim), p_np, states, x, dim,
+                         jnp.complex64 if dtype.is_complex else jnp.float32)
+    np.testing.assert_allclose(val.numpy(), ref, rtol=RTOL_V, atol=RTOL_V * np.abs(ref).max())
+    # in float32 / complex64 the same chain takes the kernel, as one sweep
+    calls.update(kernel=0, einsum=0)
+    _chain_value(g, p_np, states, x, low)
+    assert calls == {"kernel": 1, "einsum": 0}

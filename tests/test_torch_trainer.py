@@ -194,9 +194,14 @@ def test_train_single_node_runs_on_the_cpu():
         main(["--device", "cpu", "--steps", "1", "--save", "x.safetensors"])
     with pytest.raises(NotImplementedError, match="item 12"):
         main(["--device", "cpu", "--steps", "1", "--profile", "trace"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        with contextlib.redirect_stdout(io.StringIO()):
-            main(["--device", "cpu", "--steps", "1", "--graph-type", "wall"])
+    # non-chain graphs take the pairwise einsum path (tests/test_torch_contract.py)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        for graph_type in ("tree", "wall", "wall_col"):
+            stats = main(["--device", "cpu", "--steps", "2", "--graph-type", graph_type,
+                          "--num-qubits", "4", "--dim", "2"])
+            assert stats.steps == 2 and np.isfinite(stats.losses).all()
+    assert "graph (wall, 4 qubits" in out.getvalue()
 
 
 def test_nll_clip_gives_no_gradient_like_jax():

@@ -10,7 +10,8 @@ packages through numpy (``model.qctn.params_from_numpy``).
 Entry points take ``device=`` and default to ``"cuda"``; on a machine
 without a card they raise unless the caller passes ``device="cpu"``.  The
 hand-written Hopper kernels live in ``csrc/`` and are built with ``nvcc`` at
-first use (``ops/cuda_build.py``).
+first use (``ops/cuda_build.py``); the contraction-path finder in
+``native/`` is built with ``g++`` at first use (``native/build.py``).
 """
 
 __version__ = "0.1.0"

@@ -1,25 +1,36 @@
-"""Symmetry-breaking experiment on an MPS chain, network-fidelity mode.
+"""Symmetry-breaking experiment: iterative core pruning on a QCTN.
 
-Counterpart of ``tneq_tpu/apps/symmetry_breaking.py`` for
-``topology='mps'``, ``fidelity_mode='network'``:
+Counterpart of ``tneq_tpu/apps/symmetry_breaking.py``:
 
-1. build the MPS chain (physical rank ``rank``, bond ``bond_dim``);
-2. draw a random target network with a planted set of interior cores
-   masked out (transparent cores: bond passes through, physical legs
-   identity);
+1. build the circuit — the reference's brick wall (``topology='brick'``,
+   the default: ``n_cells`` layers of two-qubit gates of bond rank
+   ``rank``) or an MPS chain (``'mps'``: physical rank ``rank``, bond
+   ``bond_dim``);
+2. draw a random target network with a planted set of cores masked out:
+   contracted to a dense target tensor (``fidelity_mode='dense'``, the
+   brick wall's mode), or kept as the masked network itself
+   (``'network'``, the chain's);
 3. validate the target by refitting a fresh full network to 1-F < tol;
 4. greedily try to prune one more core: mask it, refit (warm-started from
-   the validated fit), keep it pruned if the fidelity recovers.
+   the validated fit, or cold), keep it pruned if the fidelity recovers.
 
 Pruning is a mask input to one fit, so every candidate reuses the same
-code path; on the card every chain overlap of every fit runs through the
-sweep kernels (``ops/chain_overlap.py``).  The brick-wall topology, the
-dense-target mode, the CLI (brick-only in JAX) and the vmapped
-``symmetry_breaking_batched`` wait for later slices.
+code path.  The dense fit contracts the network as pairwise
+``torch.einsum`` steps along the native path (``ops/contract.py``); on the
+card every chain overlap of a network fit runs through the sweep kernels
+(``ops/chain_overlap.py``).  Still to come: the brick wall in network mode
+(ROADMAP A, item 7b), stacked-real pairs (``complex_as_real``, item 7c),
+the vmapped ``symmetry_breaking_batched`` (items 5/6) and bond-sliced
+multi-device overlaps (item 11).
+
+    python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2
 """
 
 from __future__ import annotations
 
+import argparse
+import json
+import time
 from dataclasses import dataclass
 from functools import partial
 from typing import List, Optional, Sequence, Tuple
@@ -28,13 +39,14 @@ import numpy as np
 import torch
 
 from ..graph.dsl import CircuitGraph, parse_graph
-from ..graph.generators import mps_graph
+from ..graph.generators import build_brick_wall_incidence, incidence_to_graph, mps_graph
 from ..model.qctn import GeneratorLike, init_params
+from ..ops.contract import make_core_only_fn
 from ..optim.factory import make_optimizer
 from ..optim.stiefel import sgdg
-from ..train.fit import transparent_cores
+from ..train.fit import identity_cores, make_masked_fidelity_fit, masked_cores, transparent_cores
 from ..train.network_fit import make_masked_network_fidelity_fit
-from ..utils.device import resolve_device
+from ..utils.device import matmul_precision, resolve_device
 
 __all__ = [
     "SymmetryBreakingConfig",
@@ -46,19 +58,38 @@ __all__ = [
     "main",
 ]
 
-_BRICK = (
-    "the brick-wall topology and the dense-target mode wait for the "
-    "brick-wall slice (ROADMAP queue A, item 7)"
+_BRICK_NETWORK = (
+    "the brick wall in network fidelity mode needs ops/row_scan.py and the "
+    "rescaled pairwise overlaps (ROADMAP queue A, item 7b)"
+)
+_PAIR = (
+    "stacked-real complex pairs (complex_as_real, --dtype complex64-pair) "
+    "need ops/complex_pair.py (ROADMAP queue A, item 7c)"
+)
+_BATCHED = (
+    "the batched prune (symmetry_breaking_batched, --batched) waits for "
+    "FitDrivers.batched (ROADMAP queue A, items 5/6)"
+)
+_SLICED = (
+    "bond-sliced multi-device overlaps (--slice-devices) wait for the "
+    "parallel layer (ROADMAP queue A, item 11)"
 )
 
 
 @dataclass
 class SymmetryBreakingConfig:
-    """Fields as in the JAX config; ``dtype`` is a torch dtype and
-    ``device`` selects the card (default) or the host (``'cpu'``)."""
+    """Fields and defaults as in the JAX config (the reference's 8-qubit,
+    5-cell, rank-2 brick wall in complex64 with Stiefel SGD-G, dense
+    fidelity), less ``lane_chunk`` of the batched prune (items 5/6);
+    ``dtype`` is a torch dtype and ``device`` selects the card (default)
+    or the host (``'cpu'``)."""
 
     n_qubits: int = 8
+    n_cells: int = 5
     rank: int = 2
+    # 'brick': n_cells layers of two-qubit gates of bond rank `rank`;
+    # 'mps': a chain with physical rank `rank` and bond `bond_dim`, masked
+    # with transparent cores, which requires fidelity_mode='network'
     topology: str = "brick"
     bond_dim: int = 64
     # 'sgdg' (Stiefel SGD-G) or any optim.factory method; MPS fits need an
@@ -66,6 +97,8 @@ class SymmetryBreakingConfig:
     # STIEFEL_STALL_r05.json)
     optimizer: str = "sgdg"
     matmul_precision: str = "highest"
+    # 'dense': fidelity against a materialised 4^n target tensor;
+    # 'network': fidelity from network-network overlaps only
     fidelity_mode: str = "dense"
     dtype: torch.dtype = torch.complex64
     complex_as_real: bool = False
@@ -79,15 +112,23 @@ class SymmetryBreakingConfig:
     momentum: float = 0.9
     tol: float = 1e-3
     max_outer_iterations: int = 500
+    seed: int = 0
     device: str = "cuda"
+
+    @property
+    def n_cores(self) -> int:
+        return (self.n_qubits - 1) * self.n_cells
 
 
 class Experiment:
-    """One MPS topology with its two fits (validate, prune)."""
+    """One topology with its two fits (validate, prune)."""
 
     def __init__(self, cfg: SymmetryBreakingConfig):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        self.incidence: Optional[np.ndarray] = None
+        self.unmaskable: frozenset = frozenset()
+        identities = None
         if cfg.topology == "mps":
             if cfg.fidelity_mode != "network":
                 raise ValueError(
@@ -96,25 +137,30 @@ class Experiment:
                 )
             if cfg.complex_as_real:
                 raise ValueError("topology='mps' has no pair-form identities")
+            self.graph: CircuitGraph = parse_graph(
+                mps_graph(cfg.n_qubits, cfg.bond_dim, phys=cfg.rank)
+            )
+            # pairing='kind': bond->bond x phys->phys at every bond_dim
+            identities, unmask = transparent_cores(self.graph, cfg.dtype, pairing="kind")
+            self.unmaskable = frozenset(unmask)
         elif cfg.topology == "brick":
-            raise NotImplementedError(_BRICK)
+            if cfg.fidelity_mode == "network":
+                raise NotImplementedError(_BRICK_NETWORK)
+            if cfg.complex_as_real:
+                raise NotImplementedError(_PAIR)
+            self.incidence = build_brick_wall_incidence(cfg.n_qubits, cfg.n_cells, cfg.rank)
+            self.graph = parse_graph(incidence_to_graph(self.incidence))
         else:
             raise ValueError(f"unknown topology {cfg.topology!r}")
-        self.graph: CircuitGraph = parse_graph(
-            mps_graph(cfg.n_qubits, cfg.bond_dim, phys=cfg.rank)
-        )
-        # pairing='kind': bond->bond x phys->phys at every bond_dim
-        identities, unmask = transparent_cores(self.graph, cfg.dtype, pairing="kind")
-        self.unmaskable: frozenset = frozenset(unmask)
-        make_fit = partial(
-            make_masked_network_fidelity_fit,
-            jit_scope=cfg.fit_jit_scope,
-            sync_every=cfg.fit_sync_every,
-            mesh=cfg.mesh,
-            identities=identities,
-            matmul_precision=cfg.matmul_precision,
-            device=self.device,
-        )
+        common = dict(jit_scope=cfg.fit_jit_scope, sync_every=cfg.fit_sync_every,
+                      matmul_precision=cfg.matmul_precision, device=self.device)
+        if cfg.fidelity_mode == "network":
+            make_fit = partial(make_masked_network_fidelity_fit, mesh=cfg.mesh,
+                               identities=identities, **common)
+        elif cfg.fidelity_mode == "dense":
+            make_fit = partial(make_masked_fidelity_fit, **common)
+        else:
+            raise ValueError(f"unknown fidelity_mode {cfg.fidelity_mode!r}")
         if cfg.optimizer != "sgdg":
             def make_opt(lr, momentum=0.9, stiefel=True):
                 return make_optimizer(cfg.optimizer, lr=lr, momentum=momentum)
@@ -140,8 +186,12 @@ class Experiment:
         return init_params(self.graph, generator, self.cfg.dtype, self.device)
 
     def run_fit(self, fit, params, mask, target):
-        t_params, t_mask = target
-        return fit(params, mask, t_params, t_mask)
+        """Invoke a fit with the mode's target: a dense tensor, or the
+        ``(params, mask)`` of the target network."""
+        if self.cfg.fidelity_mode == "network":
+            t_params, t_mask = target
+            return fit(params, mask, t_params, t_mask)
+        return fit(params, mask, target)
 
     def mask_vector(self, masked: Sequence[int]) -> torch.Tensor:
         m = np.ones(self.graph.ncores, np.float32)
@@ -149,9 +199,16 @@ class Experiment:
         return torch.as_tensor(m, device=self.device)
 
     def row_would_empty(self, masked: Sequence[int]) -> bool:
-        """True if the mask touches a core with no transparent form (the MPS
+        """True if this mask is structurally forbidden: a brick-wall qubit
+        row left with no cores, or a core with no transparent form (the MPS
         boundary cores: masking one zeroes the network)."""
-        return bool(self.unmaskable) and not self.unmaskable.isdisjoint(masked)
+        if self.unmaskable and not self.unmaskable.isdisjoint(masked):
+            return True
+        if self.incidence is None:
+            return False
+        inc = self.incidence.copy()
+        inc[:, list(masked)] = 0
+        return bool(((inc > 0).sum(axis=1) == 0).any())
 
     def candidate_indices(self) -> List[int]:
         """Core indices the pruning loop may try (excludes unmaskable)."""
@@ -164,11 +221,19 @@ def make_experiment(cfg: Optional[SymmetryBreakingConfig] = None) -> Experiment:
 
 def target_tensor_init(exp: Experiment, target_mask_list: Sequence[int],
                        generator: GeneratorLike):
-    """Random masked network -> the target ``(params, mask)`` (network
-    mode needs no dense tensor, and no contraction)."""
-    if exp.cfg.fidelity_mode != "network":
-        raise NotImplementedError(_BRICK)
-    return exp.init_params(generator), exp.mask_vector(target_mask_list)
+    """Random masked network -> the target: the dense tensor of the masked
+    cores, contracted at 'highest' precision, or in network mode the
+    ``(params, mask)`` of the masked network itself."""
+    params = exp.init_params(generator)
+    mask = exp.mask_vector(target_mask_list)
+    if exp.cfg.fidelity_mode == "network":
+        return params, mask
+    dtype = exp.cfg.dtype
+    idents = {k: torch.as_tensor(v).to(device=exp.device, dtype=dtype)
+              for k, v in identity_cores(exp.graph, dtype).items()}
+    eff = masked_cores(params, mask, idents, exp.graph.core_names, dtype)
+    with torch.no_grad(), matmul_precision("highest"):
+        return make_core_only_fn(exp.graph)(eff)
 
 
 def validate_target_tensor(exp: Experiment, target, generator: GeneratorLike,
@@ -207,6 +272,7 @@ def symmetry_breaking(
         generator = torch.Generator().manual_seed(int(shuffle_seed))
     elif not isinstance(generator, torch.Generator):
         generator = torch.Generator().manual_seed(int(generator))
+    forbidden = "would empty a qubit row" if exp.incidence is not None else "unmaskable"
     pruned: List[int] = []
     prune_count = 0
     candidates = exp.candidate_indices()
@@ -224,7 +290,7 @@ def symmetry_breaking(
             trial = pruned + [idx]
             if exp.row_would_empty(trial):
                 if verbose:
-                    print(f"  skip core {idx}: unmaskable", flush=True)
+                    print(f"  skip core {idx}: {forbidden}", flush=True)
                 continue
             params = current if current is not None else exp.init_params(generator)
             res = exp.run_fit(exp.prune_fit, params, exp.mask_vector(trial), target)
@@ -248,5 +314,131 @@ def symmetry_breaking(
 
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
-    """The JAX CLI drives the brick-wall experiment only."""
-    raise NotImplementedError(_BRICK)
+    """CLI driver of the brick-wall experiment: generate and validate a
+    target, then run repeated symmetry-breaking restarts keeping the best
+    pruned set.  JAX's flags and defaults, plus ``--device``.  Restart r
+    shuffles with seed ``seed + r`` (JAX splits its key)."""
+    p = argparse.ArgumentParser(description="QCTN symmetry-breaking experiment")
+    p.add_argument("--n-qubits", type=int, default=8)
+    p.add_argument("--n-cells", type=int, default=5)
+    p.add_argument("--rank", type=int, default=2)
+    p.add_argument("--restarts", type=int, default=20)
+    p.add_argument("--validate-steps", type=int, default=4000)
+    p.add_argument("--prune-steps", type=int, default=5000)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--target-mask", type=int, nargs="*", default=None)
+    p.add_argument("--save", type=str, default=None, help="save best run JSON")
+    p.add_argument("--batched", action="store_true",
+                   help="score all pruning candidates per round in one "
+                        "vmapped fit (not ported yet: items 5/6)")
+    p.add_argument("--lane-chunk", type=int, default=8,
+                   help="max lanes per call in --batched mode (items 5/6)")
+    p.add_argument("--cold-start", action="store_true",
+                   help="fresh random init per pruning candidate "
+                        "(reference behavior; default warm-starts from the "
+                        "validated fit)")
+    p.add_argument("--fidelity-mode", choices=["dense", "network"],
+                   default="dense",
+                   help="'network' computes fidelity from network overlaps "
+                        "(brick wall: not ported yet, item 7b)")
+    p.add_argument("--dtype",
+                   choices=["complex64", "float32", "complex64-pair"],
+                   default="complex64",
+                   help="core dtype; float32 runs the real-orthogonal "
+                        "variant; complex64-pair (stacked-real pairs) is not "
+                        "ported yet (item 7c)")
+    p.add_argument("--jit-scope", choices=["fit", "step", "chunk"],
+                   default="fit",
+                   help="'fit': exit tested before every step; 'step': every "
+                        "sync-every steps; 'chunk': after whole sync-every "
+                        "chunks")
+    p.add_argument("--sync-every", type=int, default=1,
+                   help="steps per exit test for jit-scope step/chunk")
+    p.add_argument("--slice-devices", type=int, default=1,
+                   help="network-mode fits: shard bond-sliced overlaps over "
+                        "this many devices (not ported yet: item 11)")
+    p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    args = p.parse_args(argv)
+
+    if args.batched:
+        raise NotImplementedError(_BATCHED)
+    if args.dtype == "complex64-pair":
+        raise NotImplementedError(_PAIR)
+    if args.slice_devices > 1:
+        if args.fidelity_mode != "network":
+            p.error("--slice-devices requires --fidelity-mode network")
+        raise NotImplementedError(_SLICED)
+    cfg = SymmetryBreakingConfig(
+        n_qubits=args.n_qubits,
+        n_cells=args.n_cells,
+        rank=args.rank,
+        fidelity_mode=args.fidelity_mode,
+        validate_steps=args.validate_steps,
+        prune_steps=args.prune_steps,
+        seed=args.seed,
+        dtype=torch.complex64 if args.dtype == "complex64" else torch.float32,
+        fit_jit_scope=args.jit_scope,
+        fit_sync_every=args.sync_every,
+        device=args.device,
+    )
+    exp = make_experiment(cfg)
+    gen = torch.Generator().manual_seed(cfg.seed)
+
+    if args.target_mask is None:
+        # the reference 8-qubit experiment mask; a random quarter of the
+        # cores for other sizes
+        if cfg.n_qubits == 8 and cfg.n_cells == 5:
+            target_mask = [2, 3, 5, 8, 9, 12, 13, 14, 15, 17, 18, 20, 21, 23,
+                           25, 26, 29, 31, 32, 33]
+        else:
+            rng = np.random.default_rng(cfg.seed)
+            target_mask = sorted(
+                rng.choice(cfg.n_cores, size=max(1, cfg.n_cores // 4), replace=False)
+                .tolist()
+            )
+    else:
+        target_mask = args.target_mask
+
+    print(f"brick wall: {cfg.n_qubits} qubits x {cfg.n_cells} cells "
+          f"({exp.graph.ncores} cores); target mask: {target_mask}")
+
+    t0 = time.time()
+    while True:
+        target = target_tensor_init(exp, target_mask, gen)
+        ok, fid, steps, fitted = validate_target_tensor(exp, target, gen, return_params=True)
+        print(f"target validation: fidelity={fid:.6f} in {steps} steps "
+              f"({'ok' if ok else 'regenerating'})")
+        if ok:
+            break
+    print(f"target ready in {time.time() - t0:.1f}s")
+
+    best_pruned: List[int] = []
+    total_attempts = 0
+    for restart in range(args.restarts):
+        print(f"=== restart {restart} ===")
+        pruned, count = symmetry_breaking(
+            exp, target, cfg.seed + restart,
+            warm_params=None if args.cold_start else fitted,
+        )
+        total_attempts += count
+        if len(pruned) > len(best_pruned):
+            best_pruned = pruned
+
+    print(incidence_to_graph(exp.incidence, mask_list=target_mask,
+                             for_display=True, mask_char="#"))
+    print(f"best: pruned {len(best_pruned)}/{exp.graph.ncores} cores "
+          f"({total_attempts} attempts): {sorted(best_pruned)}")
+    result = {
+        "pruned": sorted(best_pruned),
+        "attempts": total_attempts,
+        "n_cores": exp.graph.ncores,
+        "target_mask": list(target_mask),
+    }
+    if args.save:
+        with open(args.save, "w") as f:
+            json.dump(result, f, indent=2)
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,9 @@ plus ``--device`` (default ``cuda``)::
     python -m tneq_tpu_torch.apps.train_single_node --device cpu --steps 20
 
 ``--save`` waits for the checkpoint I/O (ROADMAP A, item 2) and
-``--profile`` for ``utils/profiling.py`` (item 12); both raise.  Graphs
-other than MPS chains raise until the einsum path is ported (item 7).
+``--profile`` for ``utils/profiling.py`` (item 12); both raise.  MPS chains
+take the transfer sweep, the other graph types the pairwise einsum path
+(``ops/compiler.compile_siamese``).
 """
 
 from __future__ import annotations

@@ -23,6 +23,12 @@ import numpy as np
 import torch
 
 from ..graph.dsl import CircuitGraph, parse_graph
+from ..ops.contract import (
+    contract_cores,
+    make_two_network_fn,
+    make_with_inputs_fn,
+    siamese_probability,
+)
 from ..utils.device import DeviceLike, resolve_device
 
 __all__ = [
@@ -121,9 +127,9 @@ class QCTN:
 
     Counterpart of the JAX ``QCTN``: JAX's ``key=`` becomes an integer
     ``seed`` (drawn with :func:`init_params`), plus ``device=``.  The
-    surgery methods (``split``, ``merge_with``) wait for
-    ``graph/surgery.py``; the contraction conveniences for
-    ``ops/contract.py`` (ROADMAP A, item 7).
+    contraction conveniences run through ``ops/contract.py``; the surgery
+    methods (``split``, ``merge_with``) wait for ``graph/surgery.py``
+    (ROADMAP A, item 10).
     """
 
     def __init__(
@@ -205,6 +211,30 @@ class QCTN:
                 f"core {name!r}: size mismatch {tuple(arr.shape)} vs {target_shape}"
             )
         self.params[name] = arr.reshape(target_shape).to(dtype=self.dtype, device=self.device)
+
+    # -- contraction conveniences ------------------------------------------
+
+    def contract_core_only(self, order: str = "reference"):
+        """Dense circuit tensor with open boundary legs."""
+        return contract_cores(self.graph, self.params, order)
+
+    def contract_with_inputs(self, states, batched: bool = False):
+        """Apply the circuit to per-qubit input vectors."""
+        return make_with_inputs_fn(self.graph, batched)(self.params, states)
+
+    def contract_with_self(self, states, measures):
+        """Siamese Born-rule probability (batched states where any state
+        is 2-D)."""
+        batched = any(getattr(s, "ndim", 1) == 2 for s in states)
+        return siamese_probability(
+            self.graph, self.params, states, measures, states_batched=batched
+        )
+
+    def contract_with_qctn(self, other: "QCTN", conj_target: bool = False):
+        """Scalar overlap with another circuit."""
+        return make_two_network_fn(self.graph, other.graph, conj_target)(
+            self.params, other.params
+        )
 
     # -- checkpoint I/O -----------------------------------------------------
 

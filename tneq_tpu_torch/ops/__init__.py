@@ -5,11 +5,20 @@ from .chain_overlap import (
     mv_chain_log_overlap,
     mv_chain_log_overlap_cuda,
 )
-from .compiler import compile_siamese
-from .contract import abs_square
+from .compiler import compile_siamese, estimate_cost
+from .contract import (
+    abs_square,
+    contract_cores,
+    make_core_only_fn,
+    make_siamese_env_fn,
+    make_siamese_fn,
+    make_two_network_fn,
+    make_with_inputs_fn,
+    siamese_probability,
+)
 from .features import generate_data, hermite_phi, hermite_weights, measurement_matrices
 from .mps_sweep import is_mps_chain, mps_sweep_siamese_fn
-from .scaling import Scaled, auto_scale
+from .scaling import Scaled, auto_scale, scaled_siamese_fn
 
 __all__ = [
     "chain_pair_to_mv",
@@ -18,7 +27,15 @@ __all__ = [
     "mv_chain_log_overlap",
     "mv_chain_log_overlap_cuda",
     "compile_siamese",
+    "estimate_cost",
     "abs_square",
+    "contract_cores",
+    "make_core_only_fn",
+    "make_siamese_env_fn",
+    "make_siamese_fn",
+    "make_two_network_fn",
+    "make_with_inputs_fn",
+    "siamese_probability",
     "generate_data",
     "hermite_phi",
     "hermite_weights",
@@ -27,4 +44,5 @@ __all__ = [
     "mps_sweep_siamese_fn",
     "Scaled",
     "auto_scale",
+    "scaled_siamese_fn",
 ]

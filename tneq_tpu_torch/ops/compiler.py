@@ -1,12 +1,15 @@
 """Strategy compiler: pick the contraction for a circuit.
 
-Counterpart of ``tneq_tpu/ops/compiler.py`` (``compile_siamese``).  So far
-only the chain strategy is ported: an MPS chain with unbatched states and
-one batch axis on the measures takes the transfer sweep
-(``ops/mps_sweep.py``), through the B3/B4 kernels when ``use_kernel``.  The
-general einsum path and non-chain graphs wait for ``ops/einsum_spec.py``
-(ROADMAP A, item 7), the index-sliced strategy for the parallel layer
-(item 11), and ``estimate_cost`` for the native path finder (item 10).
+Counterpart of ``tneq_tpu/ops/compiler.py`` (``compile_siamese``,
+``estimate_cost``).  Dispatch is structural:
+
+- an MPS chain with unbatched states and one batch axis on the measures
+  takes the transfer sweep (``ops/mps_sweep.py``), through the B3/B4
+  kernels where their gate takes it when ``use_kernel``;
+- everything else takes the general einsum path (``ops/contract.py``:
+  pairwise ``torch.einsum`` steps along the native path).
+
+The index-sliced strategy waits for the parallel layer (ROADMAP A, item 11).
 """
 
 from __future__ import annotations
@@ -14,9 +17,27 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 from ..graph.dsl import CircuitGraph
+from ..native.path import path_cost
+from .contract import make_siamese_fn
+from .einsum_spec import siamese_spec
 from .mps_sweep import is_mps_chain, mps_sweep_siamese_fn
 
-__all__ = ["compile_siamese"]
+__all__ = ["compile_siamese", "estimate_cost"]
+
+
+def estimate_cost(graph: CircuitGraph, batch: int = 1) -> float:
+    """Estimated element-ops of the siamese contraction (the native greedy
+    path's cost model)."""
+    spec = siamese_spec(graph, with_states=True, states_batched=False)
+    shapes = []
+    for kind, key in spec.operands:
+        if kind in ("core", "core_conj"):
+            shapes.append(graph.shapes[key])
+        elif kind in ("state", "state_conj"):
+            shapes.append((graph.input_ranks[key],))
+        else:
+            shapes.append((batch, graph.output_ranks[key], graph.output_ranks[key]))
+    return path_cost(spec.equation, shapes)
 
 
 def compile_siamese(
@@ -31,7 +52,8 @@ def compile_siamese(
 
     ``mode``: 'auto' (structural dispatch), 'mps_sweep', 'einsum',
     'sliced'.  The sweep is named ``"mps_sweep_cuda"`` with the kernels
-    and ``"mps_sweep"`` without them.
+    and ``"mps_sweep"`` without them; the einsum path ``"einsum_pairwise"``
+    (JAX's ``"einsum_xla"``).
     """
     if mode not in ("auto", "einsum", "mps_sweep", "sliced"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -49,7 +71,12 @@ def compile_siamese(
             raise ValueError("graph is not an MPS chain")
         name = "mps_sweep_cuda" if use_kernel else "mps_sweep"
         return mps_sweep_siamese_fn(graph, use_kernel=use_kernel), name
-    raise NotImplementedError(
-        "the general einsum contraction (non-chain graphs, batched states, "
-        "extra measure axes) waits for ops/einsum_spec.py (ROADMAP A, item 7)"
+    return (
+        make_siamese_fn(
+            graph,
+            with_states=True,
+            states_batched=states_batched,
+            measure_extra_dims=measure_extra_dims,
+        ),
+        "einsum_pairwise",
     )

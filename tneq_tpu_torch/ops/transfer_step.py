@@ -56,6 +56,7 @@ __all__ = [
     "transfer_step_plain",
     "transfer_step_complex_plain",
     "kernel_supported",
+    "kernel_fits",
     "kernel_plan",
     "SweepPlan",
     "launch_counts",
@@ -87,6 +88,18 @@ def kernel_supported(dtype: torch.dtype) -> bool:
     """True for the dtypes the kernels take: float32 (B3), complex64 (B4).
     Counterpart of JAX's ``pallas_supported``."""
     return dtype in (torch.float32, torch.complex64)
+
+
+def kernel_fits(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1) -> bool:
+    """True when the kernels take an ``n``-site sweep of this shape and
+    dtype: :func:`kernel_supported` holds and :func:`kernel_plan` finds a
+    plan.  Decided by shape and dtype alone (the gate of
+    ``ops/mps_sweep.py``, as ``fused_chain_supported`` is B1/B2's)."""
+    try:
+        kernel_plan(B, Da, K, Dc, dtype, n)
+    except ValueError:
+        return False
+    return True
 
 
 class SweepPlan(NamedTuple):

@@ -1,5 +1,5 @@
 from .data import cycle_batches, gaussian_batches, shuffled_epochs
-from .fit import FitResult, identity_cores, transparent_cores
+from .fit import FitResult, identity_cores, make_masked_fidelity_fit, transparent_cores
 from .losses import fidelity, fidelity_loss, nll_loss
 from .network_fit import (
     make_masked_network_fidelity_fit,
@@ -22,6 +22,7 @@ __all__ = [
     "FitResult",
     "identity_cores",
     "transparent_cores",
+    "make_masked_fidelity_fit",
     "make_masked_network_fidelity_fit",
     "network_fidelity",
     "network_log_fidelity",

@@ -1,24 +1,40 @@
-"""Masked-fit helpers: identity / transparent substitution cores and the fit
-result.  Counterpart of ``tneq_tpu/train/fit.py`` (``identity_cores``,
-``_pair_by_kind``, ``transparent_cores``, ``FitResult``); the dense
-``make_masked_fidelity_fit`` waits for the brick-wall slice.
+"""Masked fidelity fits against a dense target, and their helpers.
+
+Counterpart of ``tneq_tpu/train/fit.py``: ``identity_cores``,
+``_pair_by_kind``, ``transparent_cores``, ``FitResult`` and
+:func:`make_masked_fidelity_fit`.  The stacked-real pair forms
+(``pair_identity_cores``, ``complex_as_real=True``) come with ROADMAP A,
+item 7c, and the fit's vmapped ``.batched`` lanes with items 5/6.
 
 A pruned core is substituted by an identity-like core through a mask
-(``effective = mask·params + (1-mask)·identity``), so every pruning
-candidate runs the same fit.  As in JAX the substitution cores are host
-numpy constants; the fits move them to their device.
+(``effective = mask·params + (1-mask)·identity``,
+:func:`masked_cores`), so every pruning candidate runs the same fit.  As in
+JAX the substitution cores are host numpy constants; a fit moves them to
+its device once, when it is built.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
 
 from ..graph.dsl import CircuitGraph
+from ..ops.contract import make_core_only_fn
+from ..optim.stiefel import GradientTransformation
+from ..utils.device import DeviceLike, resolve_device
+from ._fit_driver import FitDrivers
+from .losses import fidelity
 
-__all__ = ["identity_cores", "transparent_cores", "FitResult", "numpy_dtype"]
+__all__ = [
+    "identity_cores",
+    "transparent_cores",
+    "masked_cores",
+    "make_masked_fidelity_fit",
+    "FitResult",
+    "numpy_dtype",
+]
 
 
 def numpy_dtype(dtype: torch.dtype) -> np.dtype:
@@ -130,3 +146,103 @@ class FitResult(NamedTuple):
     infidelity: torch.Tensor  # 1 - fidelity at exit
     steps: int  # updates applied
     opt_state: object
+
+
+def masked_cores(
+    params: Mapping[str, torch.Tensor],
+    mask: torch.Tensor,
+    idents: Mapping[str, torch.Tensor],
+    names,
+    dtype: torch.dtype,
+) -> dict:
+    """``mask[i]·params_i + (1 − mask[i])·identity_i`` for core ``names[i]``:
+    1 keeps the trained core, 0 substitutes its identity."""
+    keep, drop = mask.to(dtype), (1.0 - mask).to(dtype)
+    return {n: keep[i] * params[n] + drop[i] * idents[n] for i, n in enumerate(names)}
+
+
+def make_masked_fidelity_fit(
+    graph: CircuitGraph,
+    optimizer: GradientTransformation,
+    max_steps: int,
+    tol: float = 1e-3,
+    dtype: torch.dtype = torch.complex64,
+    order: str = "reference",
+    loss_kind: str = "raw",
+    complex_as_real: bool = False,
+    jit_scope: str = "fit",
+    sync_every: int = 1,
+    matmul_precision: str = "highest",
+    device: DeviceLike = "cuda",
+) -> Callable:
+    """Build ``fit(params, mask, target) -> FitResult``.
+
+    - ``mask``: float vector ``(ncores,)`` — 1 keeps the trained core, 0
+      substitutes the identity gate (pruned).
+    - ``target``: dense target tensor with the graph's boundary legs (in
+      ``order`` axis convention), on ``device``.
+    - The loop exits once ``1 - fidelity < tol``; ``loss_kind='raw'``
+      minimises 1 − F (the reference objective), ``'log'`` −log F.
+    - ``jit_scope`` keeps the JAX names and selects the driver: 'fit' tests
+      the exit before every step, 'step' every ``sync_every`` steps,
+      'chunk' after whole ``sync_every``-step chunks (``_fit_driver``).
+    - ``matmul_precision`` ('highest' default: full f32, TF32 off) holds
+      within the fit only.  ``device``: where the identity cores live — the
+      params, mask and target handed to ``fit`` must be there too.
+    """
+    if complex_as_real:
+        raise NotImplementedError(
+            "complex_as_real needs ops/complex_pair.py and the pair "
+            "identities (ROADMAP A, item 7c)"
+        )
+    if jit_scope not in ("fit", "step", "chunk"):
+        raise ValueError(
+            f"jit_scope must be 'fit', 'step' or 'chunk', got {jit_scope!r}"
+        )
+    if loss_kind not in ("raw", "log"):
+        raise ValueError(f"loss_kind must be 'raw' or 'log', got {loss_kind!r}")
+    dev = resolve_device(device)
+    core_fn = make_core_only_fn(graph, order)
+    idents = {k: torch.as_tensor(v).to(device=dev, dtype=dtype)
+              for k, v in identity_cores(graph, dtype).items()}
+    names = graph.core_names
+
+    def loss_fn(params, mask, target):
+        """(loss, 1 − F): 'log' gives a scale-free gradient where a cold
+        start sits at F ~ 2^-2n and the raw gradient ∝ F dies."""
+        fid = fidelity(core_fn(masked_cores(params, mask, idents, names, dtype)), target)
+        if loss_kind == "log":
+            return -torch.log(fid + 1e-30), 1.0 - fid
+        return 1.0 - fid, 1.0 - fid
+
+    def _step(params, opt_state, mask, target):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+        loss, infid = loss_fn(leaves, mask, target)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        with torch.no_grad():
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = {k: params[k].detach() + updates[k] for k in params}
+        return params, opt_state, infid.detach()
+
+    drivers = FitDrivers(
+        _step, optimizer, max_steps, sync_every,
+        running=lambda infid: infid >= tol, init_metric=1.0,
+        matmul_precision=matmul_precision,
+    )
+    run = {"fit": drivers.fit_while, "step": drivers.fit_host,
+           "chunk": drivers.fit_chunked}[jit_scope]
+
+    def fit(params, mask, target) -> FitResult:
+        p, o, steps, infid = run(params, mask, target)
+        return FitResult(p, infid, steps, o)
+
+    def batched(params, masks, target, chunk_steps: int = 0) -> FitResult:
+        raise NotImplementedError(
+            "the vmapped lockstep lanes (FitDrivers.batched) wait for the "
+            "batched prune (ROADMAP A, items 5/6)"
+        )
+
+    fit.batched = batched
+    fit.scope = jit_scope
+    fit.drivers = drivers  # its step is one update, for measuring a step alone
+    return fit

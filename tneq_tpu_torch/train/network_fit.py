@@ -32,7 +32,7 @@ from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.device import matmul_precision as _precision
 from ._fit_driver import FitDrivers
-from .fit import FitResult, identity_cores
+from .fit import FitResult, identity_cores, masked_cores
 
 __all__ = [
     "make_masked_network_fidelity_fit",
@@ -42,7 +42,7 @@ __all__ = [
 
 _NON_CHAIN = (
     "only MPS chains with >= 2 cores are ported so far; other graphs need "
-    "ops/row_scan.py and ops/pairwise.py (ROADMAP queue A, item 7)"
+    "ops/row_scan.py and ops/pairwise.py (ROADMAP queue A, item 7b)"
 )
 
 
@@ -111,7 +111,7 @@ def network_log_fidelity(graph: CircuitGraph, params, target_params) -> torch.Te
     if pc is None or tc is None:
         raise NotImplementedError(
             "chains with non-uniform bonds go through ops/pairwise.py in "
-            "JAX (ROADMAP queue A, item 7)"
+            "JAX (ROADMAP queue A, item 7b)"
         )
     log_ov = _chain_overlap(pc, tc)
     log_oo = _chain_overlap(pc, pc)
@@ -155,7 +155,7 @@ def make_masked_network_fidelity_fit(
     if complex_as_real:
         raise NotImplementedError(
             "complex_as_real needs ops/complex_pair.py and "
-            "optim/pair_stiefel.py (ROADMAP queue A, item 7)"
+            "optim/pair_stiefel.py (ROADMAP queue A, item 7c)"
         )
     if mesh is not None:
         raise NotImplementedError(
@@ -187,21 +187,16 @@ def make_masked_network_fidelity_fit(
         kernels too; parity is still held against JAX's scan."""
         return _chain_overlap(_chain_cores(graph, a), _chain_cores(graph, b))
 
-    def effective(params, mask):
-        return {
-            n: mask[i].to(dtype) * params[n] + (1.0 - mask[i]).to(dtype) * idents[n]
-            for i, n in enumerate(names)
-        }
-
     def neg_log_f(params, mask, target_eff_n, log_tt):
-        eff = _normalize(effective(params, mask))
+        eff = _normalize(masked_cores(params, mask, idents, names, dtype))
         return -(2.0 * log_abs_overlap(eff, target_eff_n)
                  - log_abs_overlap(eff, eff) - log_tt)
 
     def prepare(target_params, target_mask):
         """Loop-invariant target quantities, computed once per fit."""
         with torch.no_grad(), _precision(matmul_precision):
-            target_eff_n = _normalize(effective(target_params, target_mask))
+            target_eff_n = _normalize(masked_cores(target_params, target_mask, idents,
+                                                   names, dtype))
             return target_eff_n, log_abs_overlap(target_eff_n, target_eff_n)
 
     def _step(params, opt_state, mask, target_eff_n, log_tt):

@@ -113,10 +113,10 @@ class Trainer:
         # The JAX Trainer contracts with make_siamese_fn
         # (tneq_tpu/train/trainer.py:113), which never reaches the Pallas
         # transfer step.  Here the contraction comes from compile_siamese, so
-        # chains take the sweep through kernels B3/B4; both are the same
-        # function on chains, and the parity tests hold the two Trainers
-        # against each other (ROADMAP C).  Other graphs raise until the
-        # einsum path is ported (ROADMAP A, item 7).
+        # chains take the sweep, through kernels B3/B4 where their gate takes
+        # it; both are the same function on chains, and the parity tests hold
+        # the two Trainers against each other (ROADMAP C).  Other graphs
+        # (tree, wall, wall_col) take make_siamese_fn, as in JAX.
         self._siamese, self.strategy = compile_siamese(graph)
 
     # -- forward ----------------------------------------------------------
