@@ -23,8 +23,9 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    validation fit held against the same fit on the host;
 5. transfer_kernels — the transfer-sweep kernel, B3 (float32) and B4
    (complex64, ``csrc/transfer_step.cu``), against its plain version at
-   (B, D, K) in {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)} and
-   n in {1, 5} sites, forward and the backward's d_env chain (the same
+   (B, D, K) in {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)}, and
+   at the wide cores (32, 32, 32), (32, 64, 16) that it reads from global
+   memory, n in {1, 5} sites, forward and the backward's d_env chain (the same
    kernel, sites reversed, cores transposed), with its plan, its times
    (CUDA events around one call, and the card's own time from
    torch.profiler, also per site), the bound of the whole sweep and, at
@@ -36,17 +37,20 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    sweep backward), B4 = 0;
 7. cli — ``apps.train_single_node.main`` at its defaults (complex64, 8
    qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 2 launches per step,
-   finite losses, the first 20 against the same run on the host;
+   finite losses, the first 20 against the same run on the host; then
+   ``--dim 32`` (complex64 cores of 256 KiB) for 3 steps, B4 = 2 per step;
 8. brick — the reference experiment's default at full width: the 8-qubit,
    5-cell, rank-2 brick wall (35 cores), complex64, SGD-G, dense fidelity,
    the planted 20-core mask.  Its dense target (4^8 entries) against the
    host's from the same cores; the validation fit at its default budget
    (<= 4000 steps, lr 1) to 1 - F < 1e-3; the first 20 validation losses
    against the host's loss at the card's cores; one pass of the prune loop
-   warm-started from the validated fit, its prune budget cut to
-   ``BRICK_PRUNE_STEPS``; fit steps/s, launches per fit step and the device
-   idle share from torch.profiler; then the experiment's CLI at 4 qubits x
-   2 cells in a process of its own.  This path runs no kernel of the port:
+   warm-started at the planted network, its prune budget cut to
+   ``BRICK_PRUNE_STEPS``, which must prune exactly the planted cores, as
+   the same pass on the host does; fit steps/s, launches per fit step and
+   the device idle share from torch.profiler; then the experiment's CLI at
+   4 qubits x 2 cells in a process of its own, on the card and on the
+   host, with the same result.  This path runs no kernel of the port:
    every contraction is pairwise ``torch.einsum`` steps.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
@@ -80,6 +84,10 @@ FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
 # most D^2 K^2 = 4096 terms in another order
 TOL_STEP = 2e-5
 STEP_SHAPES = ((130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4))  # (B, D, K)
+# cores of 256 KiB and more, which the plan reads from global memory:
+# train_single_node --dim 32 (complex64), and D = 64, K = 16 (float32)
+WIDE_SHAPES = ((32, 32, 32), (32, 64, 16))
+WIDE_STEPS = 3  # steps of train_single_node --dim 32 in the cli phase
 BORN_SHAPE = (512, 8, 4)  # the born_rule phase's transfer steps
 CLI_SHAPE = (32, 3, 3)  # the cli phase's
 BORN_STEPS = 200
@@ -88,7 +96,9 @@ CHECK_STEPS = 20  # card-vs-host comparisons of the two training phases
 MIDDLE_STEPS = 5  # sites of the transfer sweep of an 8-qubit chain
 # the brick phase: the reference CLI's planted mask of the 8 x 5 wall, and
 # the cuts that keep the phase near 150 s (the defaults are 5000 prune
-# steps and, for the CLI, 20 restarts)
+# steps and, for the CLI, 20 restarts).  The prune pass starts at the
+# planted network, where each planted candidate is accepted at once and
+# each other one stays far above tol after its 60 steps (1 - F >= 1e-2).
 BRICK_MASK = [2, 3, 5, 8, 9, 12, 13, 14, 15, 17, 18, 20, 21, 23, 25, 26, 29, 31, 32, 33]
 BRICK_PRUNE_STEPS = 60
 BRICK_CLI_PRUNE_STEPS = 100
@@ -551,7 +561,7 @@ def phase_transfer_kernels() -> dict:
 
     dev = torch.device("cuda", 0)
     cases = []
-    for B, D, K in STEP_SHAPES:
+    for B, D, K in STEP_SHAPES + WIDE_SHAPES:
         for n in (1, MIDDLE_STEPS):
             for name, complex_ in (("transfer_step", False), ("transfer_step_complex", True)):
                 plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
@@ -715,6 +725,19 @@ def phase_cli(smi: str) -> dict:
           f"cli launch counts {counts}, expected B4 = {per_step * CLI_STEPS}, B3 = 0")
     rel = [abs(c - h) / abs(h) for c, h in zip(stats.losses, host.losses)]
     check(max(rel) <= TOL_STEP0, f"cli: first {CHECK_STEPS} losses card vs host, rel {max(rel)}")
+    # --dim 32: complex64 cores of 256 KiB, which B4's plan reads from global
+    # memory (its sweeps are held against the plain version in the
+    # transfer_kernels phase)
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        wide = cli_main(["--dim", "32", "--steps", str(WIDE_STEPS), "--device", "cuda"])
+    torch.cuda.synchronize()
+    dt_wide = time.perf_counter() - t0
+    wide_counts = ts.launch_counts()
+    check(bool(np.isfinite(wide.losses).all()), "cli --dim 32: non-finite loss")
+    check(wide_counts == {"transfer_step": 0, "transfer_step_complex": per_step * WIDE_STEPS},
+          f"cli --dim 32 launch counts {wide_counts}, expected B4 = {per_step * WIDE_STEPS}")
     clip = float(-np.log(np.float32(1e-10)))
     rec = {
         "phase": "cli",
@@ -729,6 +752,8 @@ def phase_cli(smi: str) -> dict:
         "host_rel_err_max": max(rel),
         "launches": counts,
         "launches_per_step": {k: v / CLI_STEPS for k, v in counts.items()},
+        "wide": {"argv": ["--dim", "32", "--steps", str(WIDE_STEPS)], "seconds": dt_wide,
+                 "losses": [float(x) for x in wide.losses], "launches": wide_counts},
         "card": smi,
     }
     emit(rec)
@@ -744,6 +769,7 @@ def phase_brick(smi: str) -> dict:
     )
     from tneq_tpu_torch.model.qctn import params_from_numpy, params_to_numpy
     from tneq_tpu_torch.ops import chain_overlap, transfer_step
+    from tneq_tpu_torch.train.fit import identity_cores, masked_cores
 
     cfg = SymmetryBreakingConfig(device="cuda", max_outer_iterations=1,
                                  prune_steps=BRICK_PRUNE_STEPS)
@@ -797,14 +823,29 @@ def phase_brick(smi: str) -> dict:
     check(abs(infid_fit - infid_fit_h) <= TOL_FIT_INFID,
           f"brick: 1 - F at the validated cores, card {infid_fit} vs host {infid_fit_h}")
 
-    # one pass of the prune loop, warm-started from the validated fit
+    # one pass of the prune loop, warm-started at the planted network: the
+    # target's own cores (drawn again from seed 0) with identities in the
+    # planted places.  It must return the planted set, in the host's order.
+    def planted(e):
+        idents = {k: torch.as_tensor(v).to(device=e.device, dtype=cfg.dtype)
+                  for k, v in identity_cores(e.graph, cfg.dtype).items()}
+        return masked_cores(e.init_params(0), e.mask_vector(BRICK_MASK), idents,
+                            e.graph.core_names, cfg.dtype)
+
     t0 = time.perf_counter()
-    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0, warm_params=fitted,
+    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0, warm_params=planted(exp),
                                          verbose=False)
     torch.cuda.synchronize()
     dt_prune = time.perf_counter() - t0
     seconds = time.perf_counter() - t_start
     kernel_launches = {**chain_overlap.launch_counts(), **transfer_step.launch_counts()}
+    t0 = time.perf_counter()
+    pruned_h, attempts_h = symmetry_breaking(host, target_h, shuffle_seed=0,
+                                             warm_params=planted(host), verbose=False)
+    dt_prune_h = time.perf_counter() - t0
+    check(sorted(pruned) == BRICK_MASK and (pruned, attempts) == (pruned_h, attempts_h),
+          f"brick: the prune pass pruned {pruned} in {attempts} attempts on the card, "
+          f"{pruned_h} in {attempts_h} on the host; planted {BRICK_MASK}")
 
     box = {"p": fitted, "o": dc.optimizer.init(fitted)}
 
@@ -814,15 +855,26 @@ def phase_brick(smi: str) -> dict:
 
     prof = _profile_steps(one_step, dt_val / vsteps * 1e3)
 
-    # the experiment's CLI, in a process of its own
+    # the experiment's CLI, in a process of its own, on the card and on the
+    # host: the same best pruned set (at 100 prune steps every candidate
+    # stays far above tol: 1 - F >= 0.2 on the host)
     cli = [sys.executable, "-m", "tneq_tpu_torch.apps.symmetry_breaking", "--n-qubits", "4",
            "--n-cells", "2", "--restarts", "1", "--prune-steps", str(BRICK_CLI_PRUNE_STEPS)]
-    t0 = time.perf_counter()
-    out = subprocess.run(cli, capture_output=True, text=True, timeout=400)
-    dt_cli = time.perf_counter() - t0
-    print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
-    check(out.returncode == 0 and "best: pruned" in out.stdout,
-          f"brick: the CLI exited {out.returncode}")
+    best = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = subprocess.run(cli + ["--device", where], capture_output=True, text=True,
+                             timeout=400)
+        if where == "cuda":
+            dt_cli = time.perf_counter() - t0
+        print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("best: pruned ")]
+        check(out.returncode == 0 and len(lines) == 1,
+              f"brick: the CLI on {where} exited {out.returncode}")
+        best[where] = lines[0]
+    check(best["cuda"] == best["cpu"],
+          f"brick: the CLI's result on the card, {best['cuda']!r}, is not the host's, "
+          f"{best['cpu']!r}")
     rec = {
         "phase": "brick",
         "program": "apps.symmetry_breaking defaults: brick wall 8 qubits x 5 cells, rank 2, "
@@ -839,14 +891,16 @@ def phase_brick(smi: str) -> dict:
         "first_infidelities_card": card,
         "host_at_card_rel_err_max": max(rel_first),
         "validated_infidelity_card_host": [infid_fit, infid_fit_h],
+        "prune_warm_start": "the planted network",
         "pruned": sorted(pruned),
         "attempts": attempts,
         "prune_seconds": dt_prune,
+        "host_prune_seconds": dt_prune_h,
         "seconds": seconds,
         "port_kernel_launches": kernel_launches,
         "profile": prof,
         "cli_seconds": dt_cli,
-        "cli_last_line": out.stdout.strip().splitlines()[-1],
+        "cli_best": best["cuda"],
         "card": smi,
     }
     emit(rec)

@@ -1,6 +1,6 @@
 """The sweep kernels B1/B2 and the transfer-sweep kernels B3/B4 on the card
-against their plain versions; the gate of B3/B4 and the pairwise einsum
-path on the card against the host.
+against their plain versions; training with wide cores through B4 and the
+pairwise einsum path on the card against the host.
 
 These tests need a CUDA card and skip without one; they import no JAX, so
 they run on the machine with the card with the repository's conftest left
@@ -121,6 +121,10 @@ TOL_STEP = 2e-5  # max|kernel - plain| / max|plain| per site: the same f32 sums 
 _STEP_SHAPES = [
     (130, 3, 2, 3), (32, 3, 3, 3), (512, 8, 4, 8), (7, 3, 2, 5),
     (3, 40, 8, 40),  # complex64: one entry's T1/T2 outgrow shared memory, column strips
+    # cores of 256 KiB and more, read from global memory (stages = 0):
+    # complex64 and float32 at (32, 32, 32), float32 at (64, 16, 64), and
+    # both at (64, 8, 64)
+    (32, 32, 32, 32), (32, 64, 16, 64), (3, 64, 8, 64),
 ]
 _SWEEP_CASES = [(n, *shape) for n in (1, 2, 5) for shape in _STEP_SHAPES
                 if n == 1 or shape[1] == shape[3]]
@@ -215,7 +219,7 @@ def test_transfer_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ts._launch(env[:, :2, :2].contiguous(), a, mx, False)
     with pytest.raises(ValueError, match="square cores"):
         ts._launch(env, _sweep_inputs(2, 8, 3, 2, 4, False, dev)[1], mx, False)
-    big = _sweep_inputs(1, 2, 64, 8, 64, True, dev)
+    big = _sweep_inputs(2, 2, 128, 8, 128, True, dev)  # two env buffers of 256 KiB
     with pytest.raises(ValueError, match="does not fit"):
         ts.transfer_sweep_complex(*big)
     with pytest.raises(ValueError, match="float32"):
@@ -223,13 +227,14 @@ def test_transfer_wrapper_refuses_what_the_kernel_does_not_take(dev):
 
 
 # ---------------------------------------------------------------------------
-# the gate of B3/B4 (ROADMAP C1) and the brick-wall contraction on the card
+# wide cores through B4 (ROADMAP C1) and the brick-wall contraction on the card
 # ---------------------------------------------------------------------------
 
 
-def test_wide_cores_train_on_the_card_without_the_kernel(dev):
+def test_wide_cores_train_on_the_card_through_the_kernel(dev):
     """``train_single_node --dim 32``: complex64 cores of 32 x 32 x 32 x 32
-    outgrow B4's shared memory, so the sweep steps through torch.einsum."""
+    outgrow B4's shared memory, so its plan reads them from global memory;
+    the sweep still runs as one B4 launch each way per step."""
     import contextlib
     import io
 
@@ -239,7 +244,7 @@ def test_wide_cores_train_on_the_card_without_the_kernel(dev):
     with contextlib.redirect_stdout(io.StringIO()):
         stats = main(["--dim", "32", "--steps", "3", "--device", "cuda"])
     assert stats.steps == 3 and np.isfinite(stats.losses).all()
-    assert ts.launch_counts() == {"transfer_step": 0, "transfer_step_complex": 0}
+    assert ts.launch_counts() == {"transfer_step": 0, "transfer_step_complex": 6}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])

@@ -147,10 +147,12 @@ def test_compile_siamese_dispatch():
 
 
 # ---------------------------------------------------------------------------
-# the gate of B3/B4 (ROADMAP C1): dtype and shape decide, nothing is cast
+# B3/B4 at every width, and the kernel-free sweep for float64 / complex128
+# (ROADMAP C1): nothing is cast, nothing falls back
 # ---------------------------------------------------------------------------
 
 from tneq_tpu_torch.ops import mps_sweep as ms  # noqa: E402
+from tneq_tpu_torch.train.trainer import Trainer  # noqa: E402
 
 
 def _spy(monkeypatch):
@@ -169,9 +171,9 @@ def _spy(monkeypatch):
     return calls
 
 
-def _chain_value(g, p_np, states, x, dtype, remat=False):
+def _chain_value(g, p_np, states, x, dtype, remat=False, use_kernel=True, fn=None):
     mx = measurement_matrices(torch.as_tensor(x), g.output_ranks[0]).to(dtype)
-    fn = mps_sweep_siamese_fn(g, use_kernel=True, remat=remat)
+    fn = fn or mps_sweep_siamese_fn(g, use_kernel=use_kernel, remat=remat)
     return fn(params_from_numpy(p_np, "cpu", dtype), [torch.as_tensor(s).to(dtype) for s in states],
               [mx[:, q] for q in range(g.nqubits)])
 
@@ -185,24 +187,33 @@ def _j_chain_value(g_src, p_np, states, x, K, jdt):
                              [mx[:, q] for q in range(mx.shape[1])]))
 
 
-# (64, 16) float32 and (32, 32) complex64: one core needs 262144 bytes of
-# shared memory, more than a block of an H100 has (232448)
+# (64, 16) float32 and (32, 32) complex64: one core needs 262144 bytes, more
+# shared memory than a block of an H100 has (232448), so the kernel's plan
+# reads the cores from global memory (stages = 0) instead of staging them.
+# The strategy "mps_sweep" (use_kernel=False) takes the einsum step,
+# "mps_sweep_cuda" the kernel's wrapper (its plain version on the CPU).
 @pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("D,K,dtype", [(64, 16, torch.float32), (32, 32, torch.complex64)])
 def test_wide_cores_take_the_einsum_step(monkeypatch, D, K, dtype, remat):
-    assert not ts.kernel_fits(2, D, K, D, dtype, 2)
-    assert ts.kernel_fits(2, 8, 4, 8, dtype, 2)
+    plan = ts.kernel_plan(2, D, K, D, dtype, 2)
+    assert plan.stages == 0 and plan.smem <= ts.SMEM_MAX
+    assert ts.kernel_plan(2, 8, 4, 8, dtype, 2).stages == 2
     src = mps_graph(5, D, phys=K)
     g = t_parse(src)
     p_np = params_to_numpy(init_params(g, 0, dtype, device="cpu"))
     rng = np.random.default_rng(0)
     states = [rng.standard_normal(K).astype(NP_DT[dtype]) for _ in range(5)]
     x = rng.standard_normal((2, 5)).astype(np.float32)
-    calls = _spy(monkeypatch)
-    val = _chain_value(g, p_np, states, x, dtype, remat=remat)
-    assert calls == {"kernel": 0, "einsum": 2}  # both middle sites, step by step
     ref = _j_chain_value(src, p_np, states, x, K, jnp.complex64 if dtype.is_complex else jnp.float32)
-    np.testing.assert_allclose(val.detach().numpy(), ref, rtol=RTOL_V, atol=RTOL_V * np.abs(ref).max())
+    calls = _spy(monkeypatch)
+    for use_kernel, expected in ((False, {"kernel": 0, "einsum": 2}),
+                                 # one sweep of both middle sites, or one per site
+                                 (True, {"kernel": 2 if remat else 1, "einsum": 0})):
+        calls.update(kernel=0, einsum=0)
+        val = _chain_value(g, p_np, states, x, dtype, remat=remat, use_kernel=use_kernel)
+        assert calls == expected
+        np.testing.assert_allclose(val.detach().numpy(), ref, rtol=RTOL_V,
+                                   atol=RTOL_V * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
@@ -215,19 +226,21 @@ def test_double_precision_chains_take_the_einsum_step(monkeypatch, dtype):
     states = [rng.standard_normal(dim).astype(NP_DT[low]) for _ in range(n)]
     x = rng.standard_normal((4, n)).astype(np.float32)
     calls = _spy(monkeypatch)
-    val = _chain_value(g, p_np, states, x, dtype)
+    # the Trainer compiles the kernel-free sweep for a dtype the kernels do not take
+    tr = Trainer(g, dtype=dtype, device="cpu")
+    assert tr.strategy == "mps_sweep"
+    val = _chain_value(g, p_np, states, x, dtype, fn=tr._siamese)
     assert val.dtype == dtype  # complex128 is never cast down
     assert calls == {"kernel": 0, "einsum": 3}
     # the same einsum steps as the plain path, and JAX's value to f32 rounding
-    mx = measurement_matrices(torch.as_tensor(x), dim).to(dtype)
-    plain = mps_sweep_siamese_fn(g, use_kernel=False)(
-        params_from_numpy(p_np, "cpu", dtype), [torch.as_tensor(s).to(dtype) for s in states],
-        [mx[:, q] for q in range(n)])
+    plain = _chain_value(g, p_np, states, x, dtype, use_kernel=False)
     torch.testing.assert_close(val, plain, rtol=0, atol=0)
     ref = _j_chain_value(mps_graph(n, dim=dim), p_np, states, x, dim,
                          jnp.complex64 if dtype.is_complex else jnp.float32)
     np.testing.assert_allclose(val.numpy(), ref, rtol=RTOL_V, atol=RTOL_V * np.abs(ref).max())
-    # in float32 / complex64 the same chain takes the kernel, as one sweep
+    # in float32 / complex64 the Trainer's chain takes the kernel, as one sweep
+    tr = Trainer(g, dtype=low, device="cpu")
+    assert tr.strategy == "mps_sweep_cuda"
     calls.update(kernel=0, einsum=0)
-    _chain_value(g, p_np, states, x, low)
+    _chain_value(g, p_np, states, x, low, fn=tr._siamese)
     assert calls == {"kernel": 1, "einsum": 0}

@@ -146,6 +146,10 @@ def test_kernel_gates():
     # one entry's intermediates outgrow shared memory: strips of columns
     zb, ct, _, _, smem = ts.kernel_plan(8, 64, 8, 64, torch.float32)
     assert zb == 1 and 1 <= ct < 64 and smem <= ts.SMEM_MAX
-    # the core alone does not fit: refused with the reason
+    # the core does not fit next to one entry's intermediates: read from
+    # global memory, nothing staged
+    zb, ct, _, stages, smem = ts.kernel_plan(8, 64, 8, 64, torch.complex64)
+    assert stages == 0 and 1 <= ct < 64 and smem <= ts.SMEM_MAX
+    # one entry's two env buffers alone do not fit: refused with the reason
     with pytest.raises(ValueError, match="does not fit"):
-        ts.kernel_plan(8, 64, 8, 64, torch.complex64)
+        ts.kernel_plan(8, 128, 8, 128, torch.complex64, n=2)

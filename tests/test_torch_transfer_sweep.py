@@ -157,12 +157,29 @@ def test_kernel_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="square cores"):
         ts.kernel_plan(8, 3, 2, 4, torch.float32, n=2)
     with pytest.raises(ValueError, match="does not fit"):
-        ts.kernel_plan(8, 64, 8, 64, torch.complex64, n=5)
+        ts.kernel_plan(8, 128, 8, 128, torch.complex64, n=5)
     # a two-site sweep whose prefetch stage does not fit runs with one stage
     assert ts.kernel_plan(3, 40, 8, 40, torch.complex64, n=2).stages == 1
     # the born_rule sweep stages all five sites at the start
     assert ts.kernel_plan(512, 8, 4, 8, torch.float32, n=5).stages == 5
     assert ts.kernel_plan(512, 8, 4, 8, torch.float32, n=12).stages == ts.MAX_STAGES
+
+
+# cores of 256 KiB and more: train_single_node --dim 32 (B = 32, D = K =
+# 32, complex64), D = 64 K = 16 in float32, and (8, 64, 8) in complex64
+@pytest.mark.parametrize("B,D,K,complex_", [(32, 32, 32, True), (32, 64, 16, False),
+                                            (8, 64, 8, True), (512, 64, 16, False)])
+@pytest.mark.parametrize("n", [1, 5])
+def test_kernel_plan_reads_wide_cores_from_global_memory(B, D, K, complex_, n):
+    dtype = torch.complex64 if complex_ else torch.float32
+    elem = 8 if complex_ else 4
+    zb, ct, tile, stages, smem = ts.kernel_plan(B, D, K, D, dtype, n)
+    assert elem * D * K * D >= 262144 > ts.SMEM_MAX  # one core alone outgrows a block
+    assert stages == 0 and smem <= ts.SMEM_MAX
+    envs = 2 if n > 1 else 1
+    assert smem == elem * zb * (envs * D * D + 2 * ((D * K * (ct | 1)) | 1))
+    assert 1 <= zb <= ts.MAX_ZB and 1 <= ct <= D and tile in (1, 2, 4)
+    assert ct >= min(D, ts.MIN_STRIP) or zb == 1
 
 
 def _chain(kind):

@@ -44,6 +44,12 @@
 //     backward's transposed core is gathered element by element).  A site's
 //     chain then holds only shared-memory arithmetic and three block
 //     barriers, not a trip to L2 or HBM.
+//   * Wide cores.  Where not even one stage of A fits next to the env and
+//     the T1/T2 strips (a core of 256 KiB: D = 64, K = 16 in float32 or
+//     D = K = 32 in complex64), the plan sets stages = 0 and the kernel is
+//     instantiated without the ring: A and the group's Mx are read straight
+//     from global memory (L2), and the backward reads a core stack the
+//     wrapper has transposed.  Only the env and T1/T2 live in shared memory.
 //   * zb from the batch.  The plan (ops/transfer_step.kernel_plan) spreads
 //     the batch over the card's 132 SMs, up to 32 entries per block, so one
 //     copy of A per block and site serves many entries at wide D.
@@ -262,8 +268,9 @@ __host__ __device__ inline int entry_pitch(int Da, int K, int ct) {
 }
 
 // Shared memory of one block, in elements (the plan in ops/transfer_step.py
-// computes the same): `stages` copies of A and of the group's Mx, `envs`
-// env buffers (2 when the sweep has more than one site), T1 and T2.
+// computes the same): `stages` copies of A and of the group's Mx (none when
+// stages = 0), `envs` env buffers (2 when the sweep has more than one site),
+// T1 and T2.
 __host__ __device__ inline size_t smem_elems(int n, int Da, int K, int Dc, int zb, int ct,
                                              int stages) {
   const int envs = n > 1 ? 2 : 1;
@@ -271,7 +278,10 @@ __host__ __device__ inline size_t smem_elems(int n, int Da, int K, int Dc, int z
          (size_t)zb * ((size_t)envs * Da * Da + 2 * (size_t)entry_pitch(Da, K, ct));
 }
 
-template <class Ops, bool Backward, int Tile>
+// Staged: A and Mx pass through the cp.async ring of `stages` buffers;
+// otherwise (stages = 0) they are read from global memory, and for the
+// backward `a` holds the cores already transposed to the step's layout.
+template <class Ops, bool Backward, int Tile, bool Staged>
 __global__ void __launch_bounds__(kThreads)
 transfer_sweep_kernel(const typename Ops::T* __restrict__ env0,
                       const typename Ops::T* __restrict__ a,
@@ -308,22 +318,35 @@ transfer_sweep_kernel(const typename Ops::T* __restrict__ env0,
     cp_async_commit();
   };
 
-  // Prologue: env0 and the first `stages` sites, one group per site.
+  // Prologue: env0 and the first `stages` sites, one group per site (env0
+  // alone when nothing is staged).
   copy_async(sEnv, env0 + (size_t)z0 * DD, nz * DD);
-  for (int s = 0; s < min(n, stages); ++s) load_site(s, s);
+  if constexpr (Staged) {
+    for (int s = 0; s < min(n, stages); ++s) load_site(s, s);
+  } else {
+    cp_async_commit();
+  }
 
   for (int s = 0; s < n; ++s) {
-    const int st = s % stages;
-    // sites staged so far: the prologue's, one more per site since site 1
-    const int issued = stages == 1 ? s + 1 : min(n, stages + max(s - 1, 0));
-    cp_async_wait(issued - s - 1);
-    __syncthreads();  // site s staged; every thread is done with site s-1
-    if (stages > 1 && s > 0 && s + stages - 1 < n)
-      load_site(s + stages - 1, (s - 1) % stages);  // into site s-1's buffer
-
     const int i = Backward ? n - 1 - s : s;
-    const T* A_ = sA + st * DKC;
-    const T* M_ = sMx + st * zb * KK;
+    const T* A_;
+    const T* M_;
+    if constexpr (Staged) {
+      const int st = s % stages;
+      // sites staged so far: the prologue's, one more per site since site 1
+      const int issued = stages == 1 ? s + 1 : min(n, stages + max(s - 1, 0));
+      cp_async_wait(issued - s - 1);
+      __syncthreads();  // site s staged; every thread is done with site s-1
+      if (stages > 1 && s > 0 && s + stages - 1 < n)
+        load_site(s + stages - 1, (s - 1) % stages);  // into site s-1's buffer
+      A_ = sA + st * DKC;
+      M_ = sMx + st * zb * KK;
+    } else {
+      if (s == 0) cp_async_wait(0);  // env0
+      __syncthreads();  // env0 in place; every thread is done with site s-1
+      A_ = a + (size_t)i * DKC;
+      M_ = mx + ((size_t)i * B + z0) * KK;
+    }
     const T* E_ = sEnv + (s & 1) * zb * DD;
     T* E_next = s + 1 < n ? sEnv + ((s + 1) & 1) * zb * DD : nullptr;
     T* out_i = out + ((size_t)i * B + z0) * Dc * Dc;
@@ -373,67 +396,75 @@ transfer_sweep_kernel(const typename Ops::T* __restrict__ env0,
       // No barrier: the next strip's T1 overwrites what T2 read before the
       // barrier above, and its T2 waits behind its own T1 barrier.
     }
-    if (stages == 1 && s + 1 < n) {
-      __syncthreads();  // every thread is done with the one stage
-      load_site(s + 1, 0);
+    if constexpr (Staged) {
+      if (stages == 1 && s + 1 < n) {
+        __syncthreads();  // every thread is done with the one stage
+        load_site(s + 1, 0);
+      }
     }
   }
 }
 
-template <class Ops, bool Backward, int Tile>
-int launch_t(const void* env0, const void* a, const void* mx, int n, int B, int Da,
-             int K, int Dc, int zb, int ct, int stages, void* out, size_t smem,
-             cudaStream_t stream) {
+// The arguments of one sweep launch, as the C entry points take them.
+struct Sweep {
+  const void* env0;
+  const void* a;
+  const void* mx;
+  int n, B, Da, K, Dc, zb, ct, stages;
+  void* out;
+};
+
+template <class Ops, bool Backward, int Tile, bool Staged>
+int launch_t(const Sweep& p, size_t smem, cudaStream_t stream) {
   using T = typename Ops::T;
-  auto kernel = transfer_sweep_kernel<Ops, Backward, Tile>;
+  auto kernel = transfer_sweep_kernel<Ops, Backward, Tile, Staged>;
   if (smem > kDefaultSmem) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const unsigned blocks = (unsigned)((B + zb - 1) / zb);
+  const unsigned blocks = (unsigned)((p.B + p.zb - 1) / p.zb);
   kernel<<<blocks, kThreads, smem, stream>>>(
-      static_cast<const T*>(env0), static_cast<const T*>(a), static_cast<const T*>(mx),
-      n, B, Da, K, Dc, zb, ct, stages, static_cast<T*>(out));
+      static_cast<const T*>(p.env0), static_cast<const T*>(p.a),
+      static_cast<const T*>(p.mx), p.n, p.B, p.Da, p.K, p.Dc, p.zb, p.ct, p.stages,
+      static_cast<T*>(p.out));
   return (int)cudaGetLastError();
 }
 
-template <class Ops, bool Backward>
-int launch_b(int tile, const void* env0, const void* a, const void* mx, int n, int B,
-             int Da, int K, int Dc, int zb, int ct, int stages, void* out, size_t smem,
-             cudaStream_t stream) {
+template <class Ops, bool Backward, bool Staged>
+int launch_s(int tile, const Sweep& p, size_t smem, cudaStream_t stream) {
   switch (tile) {
     case 1:
-      return launch_t<Ops, Backward, 1>(env0, a, mx, n, B, Da, K, Dc, zb, ct, stages,
-                                        out, smem, stream);
+      return launch_t<Ops, Backward, 1, Staged>(p, smem, stream);
     case 2:
-      return launch_t<Ops, Backward, 2>(env0, a, mx, n, B, Da, K, Dc, zb, ct, stages,
-                                        out, smem, stream);
+      return launch_t<Ops, Backward, 2, Staged>(p, smem, stream);
     case 4:
-      return launch_t<Ops, Backward, 4>(env0, a, mx, n, B, Da, K, Dc, zb, ct, stages,
-                                        out, smem, stream);
+      return launch_t<Ops, Backward, 4, Staged>(p, smem, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+template <class Ops, bool Backward>
+int launch_b(int tile, const Sweep& p, size_t smem, cudaStream_t stream) {
+  return p.stages > 0 ? launch_s<Ops, Backward, true>(tile, p, smem, stream)
+                      : launch_s<Ops, Backward, false>(tile, p, smem, stream);
+}
+
 template <class Ops>
-int launch(int device, const void* env0, const void* a, const void* mx, int n, int B,
-           int Da, int K, int Dc, int backward, int zb, int ct, int tile, int stages,
-           void* out, void* stream) {
+int launch(int device, const Sweep& p, int backward, int tile, void* stream) {
   using T = typename Ops::T;
-  if (n < 1 || B < 1 || Da < 1 || K < 1 || Dc < 1 || zb < 1 || ct < 1 || ct > Dc ||
-      stages < 1 || stages > kMaxStages || stages > n || (n > 1 && Da != Dc))
+  if (p.n < 1 || p.B < 1 || p.Da < 1 || p.K < 1 || p.Dc < 1 || p.zb < 1 || p.ct < 1 ||
+      p.ct > p.Dc || p.stages < 0 || p.stages > kMaxStages || p.stages > p.n ||
+      (p.n > 1 && p.Da != p.Dc))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(T) * smem_elems(n, Da, K, Dc, zb, ct, stages);
+  const size_t smem = sizeof(T) * smem_elems(p.n, p.Da, p.K, p.Dc, p.zb, p.ct, p.stages);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   auto s = static_cast<cudaStream_t>(stream);
-  return backward ? launch_b<Ops, true>(tile, env0, a, mx, n, B, Da, K, Dc, zb, ct,
-                                        stages, out, smem, s)
-                  : launch_b<Ops, false>(tile, env0, a, mx, n, B, Da, K, Dc, zb, ct,
-                                         stages, out, smem, s);
+  return backward ? launch_b<Ops, true>(tile, p, smem, s)
+                  : launch_b<Ops, false>(tile, p, smem, s);
 }
 
 }  // namespace
@@ -442,14 +473,15 @@ extern "C" {
 
 // B3 (float32).  Forward: env0 [B, Da, Da], a [n, Da, K, Dc], mx [n, B, K, K]
 // -> out [n, B, Dc, Dc].  backward = 1: the d_env chain; a is the forward's
-// stack [n, Dc, K, Da] (read transposed, sites in reverse), env0 is the
+// stack [n, Dc, K, Da] (read transposed, sites in reverse), or with
+// stages = 0 that stack already transposed to [n, Da, K, Dc]; env0 is the
 // cotangent [B, Da, Da] of the last site's output, out[i] [B, Dc, Dc] the
 // cotangent of site i's input.  (Da, K, Dc) are the step's own dims.
 int tneq_transfer_sweep_f32(int device, const void* env0, const void* a, const void* mx,
                             int n, int B, int Da, int K, int Dc, int backward, int zb,
                             int ct, int tile, int stages, void* out, void* stream) {
-  return launch<Real>(device, env0, a, mx, n, B, Da, K, Dc, backward, zb, ct, tile,
-                      stages, out, stream);
+  return launch<Real>(device, Sweep{env0, a, mx, n, B, Da, K, Dc, zb, ct, stages, out},
+                      backward, tile, stream);
 }
 
 // B4 (complex64, interleaved re/im as float2; the bra is conj(A), and the
@@ -457,8 +489,8 @@ int tneq_transfer_sweep_f32(int device, const void* env0, const void* a, const v
 int tneq_transfer_sweep_c64(int device, const void* env0, const void* a, const void* mx,
                             int n, int B, int Da, int K, int Dc, int backward, int zb,
                             int ct, int tile, int stages, void* out, void* stream) {
-  return launch<Complex>(device, env0, a, mx, n, B, Da, K, Dc, backward, zb, ct, tile,
-                         stages, out, stream);
+  return launch<Complex>(device, Sweep{env0, a, mx, n, B, Da, K, Dc, zb, ct, stages, out},
+                         backward, tile, stream);
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ Counterpart of ``tneq_tpu/ops/compiler.py`` (``compile_siamese``,
 
 - an MPS chain with unbatched states and one batch axis on the measures
   takes the transfer sweep (``ops/mps_sweep.py``), through the B3/B4
-  kernels where their gate takes it when ``use_kernel``;
+  kernels when ``use_kernel`` (float32 and complex64 only: a caller in
+  another dtype passes ``use_kernel=False``, as ``Trainer`` does);
 - everything else takes the general einsum path (``ops/contract.py``:
   pairwise ``torch.einsum`` steps along the native path).
 

@@ -13,11 +13,12 @@ PyTorch runs ``torch.einsum`` as a chain of separate launches with
 (``ops/transfer_step.py``) run all the middle steps of a sweep in one
 launch, and its d_env backward in one more.
 
-The kernels take a sweep only inside their gate, ``kernel_fits``: float32
-or complex64 (cores, env and operators of one dtype) and a core that fits
-the kernel's shared memory.  Every other sweep (float64, complex128, which
-keeps its precision, and wide cores such as D = 64, K = 16 in float32)
-runs one ``torch.einsum`` step per site, as JAX's default does.
+The kernels take float32 (B3) and complex64 (B4) at every width their
+plan covers (wide cores read from global memory); on the card anything
+else raises.  A float64 or complex128 chain takes the sweep without them
+(``use_kernel=False``, the strategy ``mps_sweep`` of
+``ops/compiler.compile_siamese``, JAX's ``use_pallas=False``): one
+``torch.einsum`` step per site, in the chain's own precision.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..graph.dsl import CircuitGraph
-from .transfer_step import kernel_fits, transfer_sweep, transfer_sweep_complex
+from .transfer_step import transfer_sweep, transfer_sweep_complex
 
 __all__ = ["is_mps_chain", "mps_sweep_siamese_fn"]
 
@@ -55,13 +56,6 @@ def _einsum_step(env, a, mx, conj):
     return torch.einsum("zab,akc,zkl,bld->zcd", env, a, mx, conj(a))
 
 
-def _kernel_takes(env, a, mx) -> bool:
-    """True when B3/B4 take the sweep of ``a [n, Da, K, Dc]`` from ``env``."""
-    n, Da, K, Dc = a.shape
-    return (env.dtype == a.dtype == mx.dtype
-            and kernel_fits(env.shape[0], Da, K, Dc, a.dtype, n))
-
-
 def _kernel_sweep(env, a, mx):
     """The steps of ``a [n, Da, K, Dc]``, ``mx [n, B, K, K]`` in one sweep."""
     if a.is_complex():
@@ -83,11 +77,11 @@ def mps_sweep_siamese_fn(
 
     ``states``: per-qubit ``(rank,)`` vectors; ``measures``: per-qubit
     ``(B, K, K)`` operators.  ``use_kernel`` (JAX's ``use_pallas``) runs
-    the middle transfer steps through B3/B4 where their gate takes them
-    (module docstring); otherwise one ``torch.einsum`` per step.  Where the
+    the middle transfer steps through B3/B4 (float32 or complex64, module
+    docstring); otherwise one ``torch.einsum`` per step.  Where the
     middle cores are uniform and more than one (JAX's ``lax.scan`` branch),
     the kernel path stacks them and runs the sweep in one call; a
-    non-uniform chain steps one site at a time, gated per step.
+    non-uniform chain steps one site at a time.
     ``remat`` recomputes each middle step in the backward
     (``torch.utils.checkpoint``) instead of storing its intermediates, so
     it too steps one site at a time.
@@ -100,6 +94,7 @@ def mps_sweep_siamese_fn(
         raise ValueError("use_kernel implies the Born-rule conjugated bra")
     m = graph.ncores
     names = graph.core_names
+    step = _kernel_step if use_kernel else _einsum_step
 
     def fn(params, states, measures):
         conj = torch.conj if conj_right else (lambda x: x)
@@ -124,17 +119,10 @@ def mps_sweep_siamese_fn(
                 torch.stack([params[i] for i in mids]),
                 torch.stack([states[i + 1] for i in mids]),
             )
-            mx = torch.stack([measures[i] for i in mids])
-            if _kernel_takes(env, a, mx):
-                env = _kernel_sweep(env, a, mx)
-            else:
-                for ai, mi in zip(a, mx):
-                    env = _einsum_step(env, ai, mi, conj)
+            env = _kernel_sweep(env, a, torch.stack([measures[i] for i in mids]))
             mids = ()
         for i in mids:
             a = torch.einsum("askc,s->akc", params[i], states[i + 1])
-            kernel = use_kernel and _kernel_takes(env, a[None], measures[i][None])
-            step = _kernel_step if kernel else _einsum_step
             if remat:
                 env = checkpoint(step, env, a, measures[i], conj, use_reentrant=False)
             else:

@@ -56,7 +56,6 @@ __all__ = [
     "transfer_step_plain",
     "transfer_step_complex_plain",
     "kernel_supported",
-    "kernel_fits",
     "kernel_plan",
     "SweepPlan",
     "launch_counts",
@@ -90,32 +89,20 @@ def kernel_supported(dtype: torch.dtype) -> bool:
     return dtype in (torch.float32, torch.complex64)
 
 
-def kernel_fits(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1) -> bool:
-    """True when the kernels take an ``n``-site sweep of this shape and
-    dtype: :func:`kernel_supported` holds and :func:`kernel_plan` finds a
-    plan.  Decided by shape and dtype alone (the gate of
-    ``ops/mps_sweep.py``, as ``fused_chain_supported`` is B1/B2's)."""
-    try:
-        kernel_plan(B, Da, K, Dc, dtype, n)
-    except ValueError:
-        return False
-    return True
-
-
 class SweepPlan(NamedTuple):
     zb: int  # batch entries per block
     ct: int  # width of the strip of output columns c a site computes at a time
     tile: int  # each thread's register tile is tile x tile outputs
-    stages: int  # sites of A / Mx staged ahead in a ring (1: no prefetch)
+    stages: int  # sites of A / Mx staged ahead in a ring (1: no prefetch; 0: read from HBM)
     smem: int  # bytes of shared memory per block
 
 
 def _smem_bytes(n: int, Da: int, K: int, Dc: int, dtype: torch.dtype, zb: int, ct: int,
                stages: int) -> int:
     """Shared memory of one block (``csrc/transfer_step.cu`` ``smem_elems``):
-    ``stages`` copies of A and of the group's Mx, one env buffer per entry
-    (two when ``n > 1``), and T1/T2, whose rows (``ct | 1``) and entries
-    have odd pitches against bank conflicts."""
+    ``stages`` copies of A and of the group's Mx (none at ``stages = 0``),
+    one env buffer per entry (two when ``n > 1``), and T1/T2, whose rows
+    (``ct | 1``) and entries have odd pitches against bank conflicts."""
     envs = 2 if n > 1 else 1
     entry = (Da * K * (ct | 1)) | 1
     elems = stages * (Da * K * Dc + zb * K * K) + zb * (envs * Da * Da + 2 * entry)
@@ -132,10 +119,12 @@ def kernel_plan(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1
     second stage of A / Mx where ``n > 1`` (prefetch) if it fits; ``zb``
     halves until a strip of ``MIN_STRIP`` columns (or all of them) fits.
     Then the ring grows to as many stages as fit, up to ``n`` and
-    ``MAX_STAGES``.  ``tile`` is the largest of 4, 2, 1 no wider than the
-    strip that still gives every thread a tile of T1.  Raises
-    ``ValueError`` when even one entry with a one-column strip does not
-    fit."""
+    ``MAX_STAGES``.  A core too wide for even one stage (256 KiB: D = 64, K
+    = 16 in float32) gets the same search with ``stages = 0``: A and Mx are
+    read from global memory and only the env and T1/T2 use shared memory.
+    ``tile`` is the largest of 4, 2, 1 no wider than the strip that still
+    gives every thread a tile of T1.  Raises ``ValueError`` when even one
+    entry's env with a one-column strip does not fit."""
     if not kernel_supported(dtype):
         raise ValueError(f"the transfer-sweep kernels take float32 or complex64, got {dtype}")
     if min(n, B, Da, K, Dc) < 1:
@@ -150,19 +139,26 @@ def kernel_plan(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1
         """The widest balanced strip that fits, 0 if none."""
         return next((-(-Dc // k) for k in range(1, Dc + 1) if fits(zb, -(-Dc // k), stages)), 0)
 
-    zb = max(1, min(MAX_ZB, B, -(-B // NUM_SMS)))
-    while True:
-        stages = 2 if n > 1 and widest(zb, 2) else 1
-        ct = widest(zb, stages)
-        if ct >= min(Dc, MIN_STRIP) or (ct and zb == 1):
-            break
-        if zb == 1:
-            raise ValueError(
-                f"transfer sweep Da={Da}, K={K}, Dc={Dc} ({dtype}) does not fit the "
-                f"kernel: its core alone needs {Da * K * Dc * (8 if dtype.is_complex else 4)} "
-                f"of {SMEM_MAX} bytes of shared memory with one batch entry"
-            )
-        zb = max(1, zb // 2)
+    def search(staged: bool):
+        """``(zb, ct, stages)`` with A / Mx staged or not, None if none fits."""
+        zb = max(1, min(MAX_ZB, B, -(-B // NUM_SMS)))
+        while True:
+            stages = (2 if n > 1 and widest(zb, 2) else 1) if staged else 0
+            ct = widest(zb, stages)
+            if ct >= min(Dc, MIN_STRIP) or (ct and zb == 1):
+                return zb, ct, stages
+            if zb == 1:
+                return None
+            zb = max(1, zb // 2)
+
+    found = search(True) or search(False)
+    if found is None:
+        raise ValueError(
+            f"transfer sweep Da={Da}, K={K}, Dc={Dc} ({dtype}) does not fit the "
+            f"kernel: one batch entry's env and a one-column strip need "
+            f"{_smem_bytes(n, Da, K, Dc, dtype, 1, 1, 0)} of {SMEM_MAX} bytes of shared memory"
+        )
+    zb, ct, stages = found
     while stages > 1 and stages < min(n, MAX_STAGES) and fits(zb, ct, stages + 1):
         stages += 1
     tile = next(t for t in (4, 2, 1)
@@ -259,6 +255,8 @@ def _launch(env0, a, mx, complex_: bool, backward: bool = False) -> torch.Tensor
     _check("a", a, tuple(a.shape), dtype, dev)
     _check("mx", mx, (n, B, K, K), dtype, dev)
     plan = kernel_plan(B, Da, K, Dc, dtype, n)
+    if backward and plan.stages == 0:  # read from global memory in the step's layout
+        a = a.permute(0, 3, 2, 1).contiguous()
     out = torch.empty((n, B, Dc, Dc), dtype=dtype, device=dev)
     fn = _lib().tneq_transfer_sweep_c64 if complex_ else _lib().tneq_transfer_sweep_f32
     stream = torch.cuda.current_stream(dev).cuda_stream

@@ -19,6 +19,7 @@ from ..graph.dsl import CircuitGraph
 from ..ops.compiler import compile_siamese
 from ..ops.contract import abs_square
 from ..ops.features import measurement_matrices
+from ..ops.transfer_step import kernel_supported
 from ..optim.factory import make_optimizer
 from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
@@ -113,11 +114,14 @@ class Trainer:
         # The JAX Trainer contracts with make_siamese_fn
         # (tneq_tpu/train/trainer.py:113), which never reaches the Pallas
         # transfer step.  Here the contraction comes from compile_siamese, so
-        # chains take the sweep, through kernels B3/B4 where their gate takes
-        # it; both are the same function on chains, and the parity tests hold
-        # the two Trainers against each other (ROADMAP C).  Other graphs
-        # (tree, wall, wall_col) take make_siamese_fn, as in JAX.
-        self._siamese, self.strategy = compile_siamese(graph)
+        # chains take the sweep, through kernels B3/B4 in float32 and
+        # complex64 ("mps_sweep_cuda") and one torch.einsum per step in
+        # float64 and complex128 ("mps_sweep"); both are the same function on
+        # chains, and the parity tests hold the two Trainers against each
+        # other (ROADMAP C).  Other graphs (tree, wall, wall_col) take
+        # make_siamese_fn, as in JAX.
+        self._siamese, self.strategy = compile_siamese(
+            graph, use_kernel=kernel_supported(dtype))
 
     # -- forward ----------------------------------------------------------
 
