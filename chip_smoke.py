@@ -51,7 +51,25 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    the device idle share from torch.profiler; then the experiment's CLI at
    4 qubits x 2 cells in a process of its own, on the card and on the
    host, with the same result.  This path runs no kernel of the port:
-   every contraction is pairwise ``torch.einsum`` steps.
+   every contraction is pairwise ``torch.einsum`` steps;
+9. brick_network — the brick wall in network fidelity mode (row sweep,
+   rescaled pairwise steps; no kernel of the port).  (a) The 8 x 5
+   default in complex64 with the planted 20-core mask: the first 20
+   validation losses against the host's −log F at the card's cores; the
+   first ``NETWORK_VALIDATE_STEPS`` steps of the validation fit (lr 1 on
+   −log F does not reach tol in its 4000 steps), reported; 1 − F from the
+   overlaps at the validation's last cores and at phase 8's validated
+   cores against the host's and against the dense fidelity of the same
+   cores; one prune pass warm-started at the planted network,
+   ``NETWORK_PRUNE_STEPS`` steps per candidate, which must prune exactly
+   the planted cores, as the same pass on the host does; fit steps/s,
+   launches per fit step, idle share.  (b) The JAX flagship,
+   32 x 5 in float32 (155 cores), 50 validation steps from its init:
+   −log F falls, matches the host's at three of those steps, 309 pairwise
+   einsums per overlap; steps/s, launches, busy and idle share, top
+   kernels, peak memory.  (c) The CLI with ``--fidelity-mode network`` at
+   4 x 2 in a process of its own, on the card and on the host, with the
+   same result.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -106,6 +124,26 @@ TOL_TARGET = 1e-5  # dense target, card vs host, max-abs-normalised
 # 1 - F ~ 1e-3 at the validated cores, card vs host, absolute: F ~ 0.999 in
 # float32 carries ~1e-7 of rounding per summation order
 TOL_FIT_INFID = 5e-6
+# the brick_network phase: the JAX flagship (bench/flagship.py::run_32q),
+# cut to FLAGSHIP_STEPS validation steps (a cold 155-core wall needs tens
+# of thousands); the card's -log F is held against the host's at
+# FLAGSHIP_CHECK_AT; pairwise einsums per overlap of its row sweep
+FLAGSHIP_QUBITS, FLAGSHIP_CELLS = 32, 5
+FLAGSHIP_STEPS = 50
+FLAGSHIP_CHECK_AT = (0, 24, 49)
+FLAGSHIP_PAIRWISE = 309
+# the network-mode CLI at 4 x 2: its first target stalls near F = 0.45
+# (host rehearsal), so 400 validation steps, not 4000, reject it
+NETWORK_CLI_VALIDATE_STEPS = 400
+# the 8 x 5 network-mode fit is host-bound near 9 steps/s on an H100 (700 W)
+# and ~2 steps/s on the host.  At the default validation budget (4000
+# steps, lr 1) -log F does not fall: 446 s, ending at 1 - F = 0.99999.  So
+# the phase runs the first NETWORK_VALIDATE_STEPS of that fit, and its
+# prune pass gives each candidate NETWORK_PRUNE_STEPS steps (accepted
+# candidates exit at once, rejected ones stay far above tol), which the
+# host repeats.
+NETWORK_VALIDATE_STEPS = 300
+NETWORK_PRUNE_STEPS = 5
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -760,7 +798,29 @@ def phase_cli(smi: str) -> dict:
     return rec
 
 
-def phase_brick(smi: str) -> dict:
+def _cli_pair(extra) -> dict:
+    """The experiment's CLI in a process of its own, on the card and on the
+    host: the ``best: pruned`` line of each, and the card's seconds."""
+    cli = [sys.executable, "-m", "tneq_tpu_torch.apps.symmetry_breaking", *extra]
+    best, seconds = {}, None
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        out = subprocess.run(cli + ["--device", where], capture_output=True, text=True,
+                             timeout=400)
+        if where == "cuda":
+            seconds = time.perf_counter() - t0
+        print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("best: pruned ")]
+        check(out.returncode == 0 and len(lines) == 1,
+              f"the CLI {extra} on {where} exited {out.returncode}")
+        best[where] = lines[0]
+    check(best["cuda"] == best["cpu"],
+          f"the CLI {extra}: the card's result, {best['cuda']!r}, is not the host's, "
+          f"{best['cpu']!r}")
+    return {"best": best["cuda"], "seconds": seconds}
+
+
+def phase_brick(smi: str):
     import torch
 
     from tneq_tpu_torch.apps.symmetry_breaking import (
@@ -858,23 +918,8 @@ def phase_brick(smi: str) -> dict:
     # the experiment's CLI, in a process of its own, on the card and on the
     # host: the same best pruned set (at 100 prune steps every candidate
     # stays far above tol: 1 - F >= 0.2 on the host)
-    cli = [sys.executable, "-m", "tneq_tpu_torch.apps.symmetry_breaking", "--n-qubits", "4",
-           "--n-cells", "2", "--restarts", "1", "--prune-steps", str(BRICK_CLI_PRUNE_STEPS)]
-    best = {}
-    for where in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        out = subprocess.run(cli + ["--device", where], capture_output=True, text=True,
-                             timeout=400)
-        if where == "cuda":
-            dt_cli = time.perf_counter() - t0
-        print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("best: pruned ")]
-        check(out.returncode == 0 and len(lines) == 1,
-              f"brick: the CLI on {where} exited {out.returncode}")
-        best[where] = lines[0]
-    check(best["cuda"] == best["cpu"],
-          f"brick: the CLI's result on the card, {best['cuda']!r}, is not the host's, "
-          f"{best['cpu']!r}")
+    cli = _cli_pair(["--n-qubits", "4", "--n-cells", "2", "--restarts", "1",
+                     "--prune-steps", str(BRICK_CLI_PRUNE_STEPS)])
     rec = {
         "phase": "brick",
         "program": "apps.symmetry_breaking defaults: brick wall 8 qubits x 5 cells, rank 2, "
@@ -899,8 +944,233 @@ def phase_brick(smi: str) -> dict:
         "seconds": seconds,
         "port_kernel_launches": kernel_launches,
         "profile": prof,
-        "cli_seconds": dt_cli,
-        "cli_best": best["cuda"],
+        "cli_seconds": cli["seconds"],
+        "cli_best": cli["best"],
+        "card": smi,
+    }
+    emit(rec)
+    return rec, fitted, target
+
+
+def phase_brick_network(smi: str, dense_fitted, dense_target) -> dict:
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.apps.symmetry_breaking import (
+        SymmetryBreakingConfig, make_experiment, symmetry_breaking, target_tensor_init,
+        validate_target_tensor,
+    )
+    from tneq_tpu_torch.model.qctn import params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.ops import chain_overlap, row_scan, transfer_step
+    from tneq_tpu_torch.ops.contract import make_core_only_fn
+    from tneq_tpu_torch.train.fit import identity_cores, masked_cores
+    from tneq_tpu_torch.train.losses import fidelity
+    from tneq_tpu_torch.train.network_fit import network_log_fidelity
+    from tneq_tpu_torch.utils.device import matmul_precision
+
+    def host_nlf(e, cores, t_eff):
+        """The host's −log F at numpy ``cores`` against its prepared target."""
+        with torch.no_grad(), matmul_precision("highest"):
+            return float(-network_log_fidelity(e.graph, params_from_numpy(cores, "cpu"), t_eff))
+
+    def pairwise_per_overlap(graph) -> int:
+        return sum(len(r.steps) for r in row_scan._schedule(graph, None, None) if r.steps)
+
+    chain_overlap.reset_launch_counts()
+    transfer_step.reset_launch_counts()
+    t_start = time.perf_counter()
+
+    # (a) the reference default in network mode
+    cfg = SymmetryBreakingConfig(device="cuda", fidelity_mode="network",
+                                 validate_steps=NETWORK_VALIDATE_STEPS,
+                                 max_outer_iterations=1, prune_steps=NETWORK_PRUNE_STEPS)
+    exp = make_experiment(cfg)
+    host = make_experiment(replace(cfg, device="cpu"))
+    check(row_scan.supports_row_scan(exp.graph),
+          "brick_network: the brick wall does not take the row sweep")
+    gen = torch.Generator().manual_seed(0)
+    target = target_tensor_init(exp, BRICK_MASK, gen)
+    target_h = target_tensor_init(host, BRICK_MASK, 0)
+    check(all(torch.equal(target[0][k].cpu(), target_h[0][k]) for k in target_h[0]),
+          "brick_network: the target's cores differ between card and host")
+    vfit, vfit_h = exp.validate_fit, host.validate_fit
+    t_eff, log_tt = vfit.prepare(*target)
+    t_eff_h, _ = vfit_h.prepare(*target_h)
+
+    # the first validation steps on the card, keeping their cores; the
+    # host's −log F at those cores must equal the card's
+    dc = vfit.drivers
+    params = exp.init_params(2)
+    opt = dc.optimizer.init(params)
+    mask = exp.mask_vector([])
+    card, host_at_card = [], []
+    for _ in range(CHECK_STEPS):
+        cores = params_to_numpy(params)
+        params, opt, nlf = dc.step(params, opt, mask, t_eff, log_tt)
+        card.append(float(nlf))
+        host_at_card.append(host_nlf(host, cores, t_eff_h))
+    rel_first = [abs(c - h) / abs(h) for c, h in zip(card, host_at_card)]
+    check(max(rel_first) <= TOL_STEP0,
+          f"brick_network: card -log F vs host -log F at the same cores, rel {max(rel_first)}")
+
+    # the validation fit, from the generator's next cores
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ok, fid, vsteps, fitted = validate_target_tensor(exp, target, gen, return_params=True)
+    torch.cuda.synchronize()
+    dt_val = time.perf_counter() - t0
+    peak8 = torch.cuda.max_memory_allocated()
+    check(math.isfinite(fid) and vsteps >= 1, f"brick_network: validation F = {fid}")
+
+    # 1 - F from the overlaps, card and host, and the dense fidelity of the
+    # same cores, at the validation's last cores and at phase 8's validated
+    # ones (1 - F ~ 1e-3 there)
+    core_fn = make_core_only_fn(exp.graph)
+    infid = {}
+    for name, cores in (("validation_end", fitted), ("dense_validated", dense_fitted)):
+        with torch.no_grad(), matmul_precision("highest"):
+            card_v = float(-torch.expm1(network_log_fidelity(exp.graph, cores, t_eff)))
+            dense_v = float(1.0 - fidelity(core_fn(cores), dense_target))
+        host_v = -math.expm1(-host_nlf(host, params_to_numpy(cores), t_eff_h))
+        infid[name] = {"card": card_v, "host": host_v, "dense_card": dense_v}
+        check(abs(card_v - host_v) <= TOL_FIT_INFID and abs(card_v - dense_v) <= TOL_FIT_INFID,
+              f"brick_network: 1 - F at the {name} cores: card {card_v}, host {host_v}, "
+              f"dense {dense_v}")
+
+    # one pass of the prune loop warm-started at the planted network, card
+    # then host
+    def planted(e):
+        idents = {k: torch.as_tensor(v).to(device=e.device, dtype=cfg.dtype)
+                  for k, v in identity_cores(e.graph, cfg.dtype).items()}
+        return masked_cores(e.init_params(0), e.mask_vector(BRICK_MASK), idents,
+                            e.graph.core_names, cfg.dtype)
+
+    t0 = time.perf_counter()
+    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0, warm_params=planted(exp),
+                                         verbose=False)
+    torch.cuda.synchronize()
+    dt_prune = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pruned_h, attempts_h = symmetry_breaking(host, target_h, shuffle_seed=0,
+                                             warm_params=planted(host), verbose=False)
+    dt_prune_h = time.perf_counter() - t0
+    check(sorted(pruned) == BRICK_MASK and (pruned, attempts) == (pruned_h, attempts_h),
+          f"brick_network: the prune pass pruned {pruned} in {attempts} attempts on the "
+          f"card, {pruned_h} in {attempts_h} on the host; planted {BRICK_MASK}")
+
+    box = {"p": fitted, "o": dc.optimizer.init(fitted)}
+
+    def one_step():
+        box["p"], box["o"], m = dc.step(box["p"], box["o"], mask, t_eff, log_tt)
+        float(m)  # the exit test's host sync, as in the fit loop
+
+    prof8 = _profile_steps(one_step, dt_val / vsteps * 1e3)
+    seconds_a = time.perf_counter() - t_start
+    t_b = time.perf_counter()
+
+    # (b) the JAX flagship: 32 x 5, float32, the first validation steps
+    cfg32 = SymmetryBreakingConfig(n_qubits=FLAGSHIP_QUBITS, n_cells=FLAGSHIP_CELLS,
+                                   fidelity_mode="network", dtype=torch.float32,
+                                   device="cuda")
+    exp32 = make_experiment(cfg32)
+    host32 = make_experiment(replace(cfg32, device="cpu"))
+    n32 = exp32.graph.ncores
+    mask32 = sorted(np.random.default_rng(0).choice(n32, size=n32 // 4, replace=False).tolist())
+    n_pairwise = pairwise_per_overlap(exp32.graph)
+    check(n32 == (FLAGSHIP_QUBITS - 1) * FLAGSHIP_CELLS and n_pairwise == FLAGSHIP_PAIRWISE,
+          f"flagship: {n32} cores, {n_pairwise} pairwise einsums per overlap")
+    gen32 = torch.Generator().manual_seed(0)
+    target32 = target_tensor_init(exp32, mask32, gen32)
+    t_eff32, log_tt32 = exp32.validate_fit.prepare(*target32)
+    t_eff32_h, _ = host32.validate_fit.prepare(*(
+        {k: v.cpu() for k, v in target32[0].items()}, target32[1].cpu()))
+    d32 = exp32.validate_fit.drivers
+    params = exp32.init_params(gen32)
+    mask_all = exp32.mask_vector([])
+    # one-time work (plans, allocator) out of the timing
+    d32.step(params, d32.optimizer.init(params), mask_all, t_eff32, log_tt32)
+    opt = d32.optimizer.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, kept = [], {}
+    t0 = time.perf_counter()
+    for i in range(FLAGSHIP_STEPS):
+        if i in FLAGSHIP_CHECK_AT:
+            kept[i] = params_to_numpy(params)
+        params, opt, nlf = d32.step(params, opt, mask_all, t_eff32, log_tt32)
+        losses.append(float(nlf))  # the exit test's host sync, as in the fit loop
+    torch.cuda.synchronize()
+    dt32 = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"flagship: -log F {losses[0]} -> {losses[-1]}")
+    host32_nlf = {i: host_nlf(host32, kept[i], t_eff32_h) for i in FLAGSHIP_CHECK_AT}
+    rel32 = {i: abs(losses[i] - host32_nlf[i]) / abs(host32_nlf[i]) for i in FLAGSHIP_CHECK_AT}
+    check(max(rel32.values()) <= TOL_FIT,
+          f"flagship: card -log F vs host at the same cores, rel {rel32}")
+    box32 = {"p": params, "o": opt}
+
+    def one_step32():
+        box32["p"], box32["o"], m = d32.step(box32["p"], box32["o"], mask_all, t_eff32,
+                                            log_tt32)
+        float(m)
+
+    prof32 = _profile_steps(one_step32, dt32 / FLAGSHIP_STEPS * 1e3, steps=3)
+    seconds_b = time.perf_counter() - t_b
+
+    # (c) the CLI in network mode at 4 x 2
+    cli = _cli_pair(["--fidelity-mode", "network", "--n-qubits", "4", "--n-cells", "2",
+                        "--restarts", "1", "--prune-steps", str(BRICK_CLI_PRUNE_STEPS),
+                        "--validate-steps", str(NETWORK_CLI_VALIDATE_STEPS)])
+    kernel_launches = {**chain_overlap.launch_counts(), **transfer_step.launch_counts()}
+    rec = {
+        "phase": "brick_network",
+        "reference_default": {
+            "program": "apps.symmetry_breaking defaults with fidelity_mode='network': brick "
+                       "wall 8 qubits x 5 cells, rank 2, complex64, sgdg (validate lr 1; "
+                       "prune lr 1e-2), tol 1e-3, planted mask of the reference CLI",
+            "reduced": {"validate_steps": NETWORK_VALIDATE_STEPS,
+                        "prune_steps": NETWORK_PRUNE_STEPS, "max_outer_iterations": 1},
+            "pairwise_per_overlap": pairwise_per_overlap(exp.graph),
+            "first_neg_log_f_card": card,
+            "host_at_card_rel_err_max": max(rel_first),
+            "validated": ok,
+            "validate_infidelity": 1.0 - fid,
+            "validate_steps": vsteps,
+            "validate_seconds": dt_val,
+            "fit_steps_per_s": vsteps / dt_val,
+            "max_memory_allocated_bytes": peak8,
+            "infidelity_checks": infid,
+            "prune_warm_start": "the planted network",
+            "pruned": sorted(pruned),
+            "attempts": attempts,
+            "prune_seconds": dt_prune,
+            "host_prune_seconds": dt_prune_h,
+            "seconds": seconds_a,
+            "profile": prof8,
+        },
+        "flagship": {
+            "program": "bench/flagship.py::run_32q on the port: brick wall 32 qubits x 5 "
+                       "cells, rank 2, float32, sgdg lr 1, network fidelity, mask "
+                       "default_rng(0).choice(155, 38)",
+            "reduced": {"validate_steps": FLAGSHIP_STEPS},
+            "cores": n32,
+            "pairwise_per_overlap": n_pairwise,
+            "neg_log_f_first_last": [losses[0], losses[-1]],
+            "neg_log_f_card_host": {i: [losses[i], host32_nlf[i]] for i in FLAGSHIP_CHECK_AT},
+            "host_rel_err_max": max(rel32.values()),
+            "fit_steps_per_s": FLAGSHIP_STEPS / dt32,
+            "ms_per_step": dt32 / FLAGSHIP_STEPS * 1e3,
+            "max_memory_allocated_bytes": peak,
+            "profile": prof32,
+            "seconds": seconds_b,
+        },
+        "cli": {"reduced": {"n_qubits": 4, "n_cells": 2, "restarts": 1,
+                            "prune_steps": BRICK_CLI_PRUNE_STEPS,
+                            "validate_steps": NETWORK_CLI_VALIDATE_STEPS}, **cli},
+        "port_kernel_launches": kernel_launches,
+        "seconds": time.perf_counter() - t_start,
         "card": smi,
     }
     emit(rec)
@@ -988,7 +1258,8 @@ def main() -> int:
         transfer = phase_transfer_kernels()
         born = phase_born_rule(setup["nvidia_smi"])
         cli = phase_cli(setup["nvidia_smi"])
-        phase_brick(setup["nvidia_smi"])
+        _, dense_fitted, dense_target = phase_brick(setup["nvidia_smi"])
+        phase_brick_network(setup["nvidia_smi"], dense_fitted, dense_target)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

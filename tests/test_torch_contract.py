@@ -46,6 +46,7 @@ from tneq_tpu_torch.graph import (
 )
 from tneq_tpu_torch.model.qctn import QCTN, init_params, params_from_numpy, params_to_numpy
 from tneq_tpu_torch.ops import contract as tc
+from tneq_tpu_torch.ops import pairwise as pw
 from tneq_tpu_torch.ops.compiler import compile_siamese, estimate_cost
 from tneq_tpu_torch.ops.scaling import scaled_siamese_fn
 from tneq_tpu_torch.optim.stiefel import sgdg as t_sgdg
@@ -144,13 +145,14 @@ def test_brick_wall_steps_fit_torch_einsum():
     at most 21, re-lettered, and the largest intermediate has rank 16."""
     gt, _ = _graphs("brick8x5")
     spec = tc.core_only_spec(gt)
-    sched = tc._schedule(spec.equation, tuple(gt.shapes[n] for n in gt.core_names))
-    assert len(sched.steps) == gt.ncores - 1
-    assert max(len(set(eq) - set(",->")) for _, _, eq in sched.steps) == 21
-    assert all(set(eq) - set(",->") <= set(string.ascii_letters) for _, _, eq in sched.steps)
-    assert sched.max_rank == 16 <= tc.CUDA_MAX_DIMS
+    steps = tc._schedule(spec.equation, tuple(gt.shapes[n] for n in gt.core_names))
+    assert len(steps) == gt.ncores - 1
+    lettered = [pw._lettered(eq) for _, _, eq in steps]
+    assert max(len(set(eq) - set(",->")) for eq, _ in lettered) == 21
+    assert all(set(eq) - set(",->") <= set(string.ascii_letters) for eq, _ in lettered)
+    assert max(rank for _, rank in lettered) == 16 <= pw.CUDA_MAX_DIMS
     with pytest.raises(ValueError, match="more than 52 symbols"):
-        tc._latin(",".join(get_symbol(i) for i in range(53)) + "->")
+        pw._lettered(",".join(get_symbol(i) for i in range(53)) + "->")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
@@ -209,10 +211,29 @@ def test_siamese_fn_validates_like_jax():
         fn(p, ts_, [m[:, :1, :1] for m in ms])
     with pytest.raises(ValueError, match="one input state per qubit"):
         fn(p, None, ms)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tc.make_siamese_fn(gt, rescale=True)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tc.make_siamese_env_fn(gt, 0, rescale=True)
+    with pytest.raises(ValueError, match="one input state per qubit"):
+        tc.make_siamese_fn(gt, rescale=True)(p, None, ms)
+
+
+@pytest.mark.parametrize("env", [False, True])
+def test_rescaled_siamese_fns_match_jax(env):
+    """rescale=True: (value, log_scale) through the rescaled executor; the
+    value times exp(log_scale) is JAX's, and so are both parts."""
+    gt, gj = _graphs("wall4")
+    p = {k: 3.0 * v for k, v in _cores(gt, torch.complex64).items()}
+    states, measures = _inputs(gt, torch.complex64)
+    t_args = ([torch.as_tensor(s) for s in states], [torch.as_tensor(m) for m in measures])
+    j_args = ([jnp.asarray(s) for s in states], [jnp.asarray(m) for m in measures])
+    make_t = (lambda g, **kw: tc.make_siamese_env_fn(g, 2, **kw)) if env else tc.make_siamese_fn
+    make_j = (lambda g, **kw: jc.make_siamese_env_fn(g, 2, **kw)) if env else jc.make_siamese_fn
+    val, log_scale = make_t(gt, rescale=True)(params_from_numpy(p, "cpu"), *t_args)
+    with jax.default_matmul_precision("highest"):
+        jval, jlog = make_j(gj, rescale=True)(_jx(p), *j_args)
+        dense = make_j(gj)(_jx(p), *j_args)
+    assert log_scale.dtype == torch.float32 and float(val.abs().max()) <= 1.0 + 1e-6
+    np.testing.assert_allclose(float(log_scale), float(jlog), rtol=1e-5)
+    _close(val, jval)
+    _close(val * torch.exp(log_scale), dense)
 
 
 @pytest.mark.parametrize("open_qubit", [0, 2])

@@ -259,3 +259,30 @@ def test_brick_wall_contraction_on_the_card_matches_the_host(dev, dtype):
     ref = contract_cores(g, host)
     assert card.is_cuda and card.shape == ref.shape == (2,) * 16
     assert _rel(card.cpu(), ref) <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+@pytest.mark.parametrize("batch", [None, 3])
+def test_row_sweep_on_the_card_matches_the_host(dev, dtype, batch):
+    """The 8 x 5 wall's log overlap and its gradient through the row sweep
+    (batched: 21-dimensional steps, within CUDA's 25)."""
+    from tneq_tpu_torch.graph import build_brick_wall_incidence, incidence_to_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params
+    from tneq_tpu_torch.ops.row_scan import make_row_scan_log_overlap_fn
+
+    g = parse_graph(incidence_to_graph(build_brick_wall_incidence(8, 5, 2)))
+    lead = (batch,) if batch else ()
+    a = {k: v.expand(lead + v.shape).clone() for k, v in init_params(g, 0, dtype, "cpu").items()}
+    b = {k: v.expand(lead + v.shape).clone() for k, v in init_params(g, 1, dtype, "cpu").items()}
+    fn = make_row_scan_log_overlap_fn(g, batch=batch)
+    out = {}
+    for where in ("cpu", dev):
+        leaves = {k: v.to(where).requires_grad_(True) for k, v in a.items()}
+        val = fn(leaves, {k: v.to(where) for k, v in b.items()})
+        grads = torch.autograd.grad(val.sum(), list(leaves.values()))
+        out[str(where)] = (val.detach().cpu(), [x.cpu() for x in grads])
+    (vh, gh), (vc, gc) = out["cpu"], out[str(dev)]
+    assert bool(torch.isfinite(vc).all())
+    assert float((vc - vh).abs().max()) <= 1e-5 * max(1.0, float(vh.abs().max()))
+    for x, y in zip(gc, gh):
+        assert _rel(x, y) <= 1e-4

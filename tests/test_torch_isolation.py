@@ -33,6 +33,7 @@ bad = sorted(m for m in sys.modules
              or m.startswith(("jax.", "jaxlib.", "optax.", "tneq_tpu.")))
 print(len(names), bad)
 assert not bad, bad
+assert "tneq_tpu_torch.ops.row_scan" in names and "tneq_tpu_torch.ops.pairwise" in names
 """
 
 
@@ -59,6 +60,10 @@ def test_entry_points_default_to_the_card():
         from tneq_tpu_torch.apps.symmetry_breaking import make_experiment
 
         assert make_experiment().device.type == "cuda"
+        from tneq_tpu_torch.apps.symmetry_breaking import SymmetryBreakingConfig
+
+        assert make_experiment(SymmetryBreakingConfig(fidelity_mode="network")).device.type \
+            == "cuda"
         assert all(v.is_cuda for v in QCTN(mps_graph(4, dim=2)).params.values())
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -79,6 +84,12 @@ def test_entry_points_default_to_the_card():
         make_experiment()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         brick_main(["--n-qubits", "4", "--n-cells", "2", "--restarts", "1"])
+    # the brick wall in network mode, through the app and its CLI
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_experiment(SymmetryBreakingConfig(fidelity_mode="network"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        brick_main(["--n-qubits", "4", "--n-cells", "2", "--restarts", "1",
+                    "--fidelity-mode", "network"])
     from tneq_tpu_torch.apps.train_single_node import main
     from tneq_tpu_torch.model.qctn import QCTN
     from tneq_tpu_torch.train.trainer import Trainer

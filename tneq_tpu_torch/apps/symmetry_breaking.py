@@ -8,22 +8,24 @@ Counterpart of ``tneq_tpu/apps/symmetry_breaking.py``:
    ``bond_dim``);
 2. draw a random target network with a planted set of cores masked out:
    contracted to a dense target tensor (``fidelity_mode='dense'``, the
-   brick wall's mode), or kept as the masked network itself
-   (``'network'``, the chain's);
+   default), or kept as the masked network itself (``'network'``, which
+   the chain requires);
 3. validate the target by refitting a fresh full network to 1-F < tol;
 4. greedily try to prune one more core: mask it, refit (warm-started from
    the validated fit, or cold), keep it pruned if the fidelity recovers.
 
 Pruning is a mask input to one fit, so every candidate reuses the same
 code path.  The dense fit contracts the network as pairwise
-``torch.einsum`` steps along the native path (``ops/contract.py``); on the
-card every chain overlap of a network fit runs through the sweep kernels
-(``ops/chain_overlap.py``).  Still to come: the brick wall in network mode
-(ROADMAP A, item 7b), stacked-real pairs (``complex_as_real``, item 7c),
-the vmapped ``symmetry_breaking_batched`` (items 5/6) and bond-sliced
-multi-device overlaps (item 11).
+``torch.einsum`` steps along the native path (``ops/contract.py``); in
+network mode the brick wall's overlaps run the row sweep
+(``ops/row_scan.py``) and, on the card, a float32 chain's overlaps the
+sweep kernels (``ops/chain_overlap.py``).  Still to come: stacked-real pairs
+(``complex_as_real``, item 7c), the vmapped ``symmetry_breaking_batched``
+(items 5/6) and bond-sliced multi-device overlaps (item 11).
 
     python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2
+    python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2 \
+        --fidelity-mode network
 """
 
 from __future__ import annotations
@@ -58,10 +60,6 @@ __all__ = [
     "main",
 ]
 
-_BRICK_NETWORK = (
-    "the brick wall in network fidelity mode needs ops/row_scan.py and the "
-    "rescaled pairwise overlaps (ROADMAP queue A, item 7b)"
-)
 _PAIR = (
     "stacked-real complex pairs (complex_as_real, --dtype complex64-pair) "
     "need ops/complex_pair.py (ROADMAP queue A, item 7c)"
@@ -144,8 +142,6 @@ class Experiment:
             identities, unmask = transparent_cores(self.graph, cfg.dtype, pairing="kind")
             self.unmaskable = frozenset(unmask)
         elif cfg.topology == "brick":
-            if cfg.fidelity_mode == "network":
-                raise NotImplementedError(_BRICK_NETWORK)
             if cfg.complex_as_real:
                 raise NotImplementedError(_PAIR)
             self.incidence = build_brick_wall_incidence(cfg.n_qubits, cfg.n_cells, cfg.rank)
@@ -340,7 +336,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--fidelity-mode", choices=["dense", "network"],
                    default="dense",
                    help="'network' computes fidelity from network overlaps "
-                        "(brick wall: not ported yet, item 7b)")
+                        "(no dense target; required beyond ~14 qubits)")
     p.add_argument("--dtype",
                    choices=["complex64", "float32", "complex64-pair"],
                    default="complex64",

@@ -2,29 +2,26 @@
 
 Counterpart of ``tneq_tpu/ops/contract.py``.  Every contraction is one
 equation from ``ops/einsum_spec.py``, executed as explicit two-operand
-``torch.einsum`` steps along the path of the port's native path finder
-(``native/path.py``: exact DP up to 16 operands, greedy beyond) — never as
-one many-operand ``torch.einsum``, which contracts left to right where
-``opt_einsum`` is missing, as on the machine with the card.  JAX takes the
-same native path from 5 operands on and opt_einsum's optimal 'auto' below;
-the port takes the native DP there too, so the two agree to rounding.
-
-Each step is re-lettered to ``a-zA-Z`` (``torch.einsum`` takes no other
-symbols; a large circuit's equation goes past 52 into Unicode).  Operands
-are promoted to one dtype first, as ``jnp.einsum`` does.
+``torch.einsum`` steps by ``ops/pairwise.execute_pairwise`` along the path
+of the port's native path finder (``native/path.py``: exact DP up to 16
+operands, greedy beyond) — never as one many-operand ``torch.einsum``,
+which contracts left to right where ``opt_einsum`` is missing, as on the
+machine with the card.  JAX takes the same native path from 5 operands on
+and opt_einsum's optimal 'auto' below; the port takes the native DP there
+too, so the two agree to rounding.
 
 Born-rule semantics as in JAX: the bra side is the complex conjugate of the
 ket side, and for complex dtypes the probability is ``|result|²``
-(:func:`abs_square`), for real dtypes the raw siamese value.  The
-per-step rescaled executor (``rescale=True``) comes with the brick-wall
-network mode (ROADMAP A, item 7b).  On MPS chains the Born-rule trainer
-takes the transfer sweep (``ops/mps_sweep.py``) instead.
+(:func:`abs_square`), for real dtypes the raw siamese value.  With
+``rescale=True`` the siamese value and env run through the per-step
+rescaled executor (``ops/pairwise.rescaled_execute``) and come back as
+``(value, log_scale)``.  On MPS chains the Born-rule trainer takes the
+transfer sweep (``ops/mps_sweep.py``) instead.
 """
 
 from __future__ import annotations
 
 import functools
-import string
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -39,7 +36,7 @@ from .einsum_spec import (
     two_network_spec,
     with_inputs_spec,
 )
-from .pairwise import pairwise_steps
+from .pairwise import einsum, execute_pairwise, pairwise_steps, rescaled_execute
 
 __all__ = [
     "abs_square",
@@ -54,15 +51,6 @@ __all__ = [
 
 Params = Dict[str, torch.Tensor]
 
-# CUDA's elementwise kernels (the copies behind einsum's permutes) take at
-# most this many dimensions
-CUDA_MAX_DIMS = 25
-
-_RESCALE = (
-    "rescale=True needs the per-step rescaled pairwise executor "
-    "(ops/pairwise.rescaled_execute), ROADMAP A, item 7b"
-)
-
 
 def abs_square(x: torch.Tensor) -> torch.Tensor:
     """|x|² as a real tensor (the Born rule)."""
@@ -71,64 +59,18 @@ def abs_square(x: torch.Tensor) -> torch.Tensor:
     return x * x
 
 
-def _latin(equation: str) -> str:
-    """``equation`` with its symbols renamed to a-zA-Z in order of first
-    appearance."""
-    names: Dict[str, str] = {}
-    for ch in equation:
-        if ch not in ",->" and ch not in names:
-            if len(names) == len(string.ascii_letters):
-                raise ValueError(
-                    f"a pairwise step needs more than {len(names)} symbols, more "
-                    f"than torch.einsum takes: {equation!r}"
-                )
-            names[ch] = string.ascii_letters[len(names)]
-    return "".join(names.get(ch, ch) for ch in equation)
-
-
-class _Schedule:
-    """The steps ``(i, j, latin equation)`` of one equation at one set of
-    shapes, and the largest rank any step touches."""
-
-    def __init__(self, equation: str, shapes: Tuple[Tuple[int, ...], ...]):
-        if len(shapes) == 1:
-            self.single = _latin(equation)
-            self.steps: Tuple[Tuple[int, int, str], ...] = ()
-            self.max_rank = max(len(shapes[0]), len(equation.split("->")[1]))
-            return
-        self.single = None
-        steps = pairwise_steps(equation, find_path(equation, shapes))
-        self.steps = tuple((i, j, _latin(eq)) for i, j, eq in steps)
-        self.max_rank = max(
-            len(term) for _, _, eq in steps for term in eq.replace("->", ",").split(",")
-        )
-
-
 @functools.lru_cache(maxsize=1024)
-def _schedule(equation: str, shapes: Tuple[Tuple[int, ...], ...]) -> _Schedule:
-    return _Schedule(equation, shapes)
+def _schedule(equation: str, shapes: Tuple[Tuple[int, ...], ...]):
+    """The pairwise steps of ``equation`` at ``shapes`` along the native path."""
+    return tuple(pairwise_steps(equation, find_path(equation, shapes)))
 
 
 def execute(equation: str, ops: Sequence[torch.Tensor]) -> torch.Tensor:
     """``equation`` on ``ops`` as pairwise ``torch.einsum`` steps along the
-    native path, the operands promoted to one dtype."""
-    dtype = functools.reduce(torch.promote_types, (o.dtype for o in ops))
-    cur: List[torch.Tensor] = [o.to(dtype) for o in ops]
-    sched = _schedule(equation, tuple(tuple(o.shape) for o in cur))
-    if cur[0].is_cuda and sched.max_rank > CUDA_MAX_DIMS:
-        raise ValueError(
-            f"a pairwise step of this contraction has a rank-{sched.max_rank} "
-            f"tensor; CUDA's elementwise kernels take at most {CUDA_MAX_DIMS} "
-            f"dimensions"
-        )
-    if sched.single is not None:
-        return torch.einsum(sched.single, cur[0])
-    for i, j, eq in sched.steps:
-        a, b = cur[i], cur[j]
-        cur.pop(max(i, j))
-        cur.pop(min(i, j))
-        cur.append(torch.einsum(eq, a, b))
-    return cur[0]
+    native path."""
+    if len(ops) == 1:
+        return einsum(equation, ops[0])
+    return execute_pairwise(_schedule(equation, tuple(tuple(o.shape) for o in ops)), ops)
 
 
 def _gather_operands(
@@ -202,8 +144,6 @@ def make_siamese_fn(
     ``(B..., K_out, K_out')`` operators with ``measure_extra_dims`` leading
     axes.  The bra side is conjugated (no-op for real dtypes).
     """
-    if rescale:
-        raise NotImplementedError(_RESCALE)
     spec = siamese_spec(graph, with_states, states_batched, measure_extra_dims)
 
     def _validate(states, measures):
@@ -241,6 +181,8 @@ def make_siamese_fn(
         ops = _gather_operands(
             spec, params, states=states, measures=measures, conj_right=conj_right
         )
+        if rescale:
+            return rescaled_execute(spec.equation, ops, 1 << 28)
         return execute(spec.equation, ops)
 
     return fn
@@ -260,8 +202,6 @@ def make_siamese_env_fn(
     ignored.  The siamese value for any operator M on that qubit is then
     ``einsum('bkl,...kl->b...', env, M)``.
     """
-    if rescale:
-        raise NotImplementedError(_RESCALE)
     spec = siamese_env_spec(graph, open_qubit, with_states, states_batched)
 
     def fn(
@@ -270,6 +210,8 @@ def make_siamese_env_fn(
         measures: Sequence[torch.Tensor],
     ) -> torch.Tensor:
         ops = _gather_operands(spec, params, states=states, measures=measures)
+        if rescale:
+            return rescaled_execute(spec.equation, ops, 1 << 28)
         return execute(spec.equation, ops)
 
     return fn

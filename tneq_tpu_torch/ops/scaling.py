@@ -1,7 +1,8 @@
 """Log-scale companions: ``(data, log_scale)`` pairs with max-abs-normalised
 data.  Counterpart of ``tneq_tpu/ops/scaling.py`` (``Scaled``,
 ``auto_scale``, ``scaled_siamese_fn``).  The per-step rescaled pairwise
-executor that these pairs also feed comes with ROADMAP A, item 7b."""
+executor (``ops/pairwise.rescaled_execute``) returns its results in the
+same ``(data, log_scale)`` form."""
 
 from __future__ import annotations
 

@@ -1,20 +1,26 @@
 """Network-space fidelity fitting: no dense target tensor, log-space math.
 
-Counterpart of ``tneq_tpu/train/network_fit.py`` for MPS chains.  The
-fidelity of two same-graph networks,
+Counterpart of ``tneq_tpu/train/network_fit.py``.  The fidelity of two
+same-graph networks,
 
     log F = 2·log|⟨t,o⟩| − log⟨o,o⟩ − log⟨t,t⟩,
 
 is computed from network-network overlaps on max-abs-normalised cores, each
-chain overlap as a transfer sweep with per-site max-abs rescaling (detached
-scales keep the LOG gradient exact).  A chain inside
-``ops.chain_overlap.fused_chain_supported`` (real float32, uniform bond,
-S = bond² <= 1024) runs through the sweep kernels; any other chain runs the
-direct einsum scan :func:`_chain_log_overlap`, as JAX does.
+overlap contracted with a max-abs rescale per step (detached scales keep
+the LOG gradient exact), so it stays finite in float32 at any depth:
 
-Non-chain graphs (the row-sweep and pairwise executors), the multi-chip
-mesh and the stacked-real ``complex_as_real`` fits wait for later slices and
-raise ``NotImplementedError`` naming the ROADMAP item that ports them.
+- an MPS chain of uniform bond runs a transfer sweep: through the sweep
+  kernels inside ``ops.chain_overlap.fused_chain_supported`` (real
+  float32, S = bond² <= 1024), as the direct einsum scan
+  :func:`_chain_log_overlap` outside it;
+- a layered 2-local circuit (the brick wall, wall_col, a chain of uneven
+  bonds) runs the row sweep of ``ops/row_scan.py``;
+- any other graph (trees, the one-core chain) runs the rescaled pairwise
+  executor of ``ops/pairwise.py``.
+
+The multi-chip mesh and the stacked-real ``complex_as_real`` fits wait for
+later slices and raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -27,6 +33,8 @@ import torch
 from ..graph.dsl import CircuitGraph
 from ..ops.chain_overlap import _TINY, _rescale, fused_chain_log_overlap, fused_chain_supported
 from ..ops.mps_sweep import is_mps_chain
+from ..ops.pairwise import make_log_abs_overlap_fn
+from ..ops.row_scan import make_row_scan_log_overlap_fn, supports_row_scan
 from ..ops.scaling import auto_scale
 from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
@@ -39,11 +47,6 @@ __all__ = [
     "network_fidelity",
     "network_log_fidelity",
 ]
-
-_NON_CHAIN = (
-    "only MPS chains with >= 2 cores are ported so far; other graphs need "
-    "ops/row_scan.py and ops/pairwise.py (ROADMAP queue A, item 7b)"
-)
 
 
 def _normalize(params):
@@ -100,22 +103,29 @@ def _is_chain(graph: CircuitGraph) -> bool:
     return graph.ncores >= 2 and is_mps_chain(graph)
 
 
+def _overlap_fn(graph: CircuitGraph):
+    """log|⟨A,B⟩| function for graphs off the chain path: the row sweep for
+    layered 2-local circuits, the rescaled pairwise executor otherwise."""
+    if supports_row_scan(graph):
+        return make_row_scan_log_overlap_fn(graph)
+    return make_log_abs_overlap_fn(graph)
+
+
 def network_log_fidelity(graph: CircuitGraph, params, target_params) -> torch.Tensor:
-    """log F between two same-graph MPS-chain networks, float32-safe at any
-    depth."""
-    if not _is_chain(graph):
-        raise NotImplementedError(_NON_CHAIN)
+    """log F between two same-graph networks, float32-safe at any depth."""
     p = _normalize(params)
     t = _normalize(target_params)
-    pc, tc = _chain_cores(graph, p), _chain_cores(graph, t)
-    if pc is None or tc is None:
-        raise NotImplementedError(
-            "chains with non-uniform bonds go through ops/pairwise.py in "
-            "JAX (ROADMAP queue A, item 7b)"
-        )
-    log_ov = _chain_overlap(pc, tc)
-    log_oo = _chain_overlap(pc, pc)
-    log_tt = _chain_overlap(tc, tc)
+    if _is_chain(graph):
+        pc, tc = _chain_cores(graph, p), _chain_cores(graph, t)
+        if pc is not None and tc is not None:
+            log_ov = _chain_overlap(pc, tc)
+            log_oo = _chain_overlap(pc, pc)
+            log_tt = _chain_overlap(tc, tc)
+            return 2.0 * log_ov - log_oo - log_tt
+    log_abs_overlap = _overlap_fn(graph)
+    log_ov = log_abs_overlap(p, t)
+    log_oo = log_abs_overlap(p, p)
+    log_tt = log_abs_overlap(t, t)
     return 2.0 * log_ov - log_oo - log_tt
 
 
@@ -142,7 +152,10 @@ def make_masked_network_fidelity_fit(
 
     Both the candidate and the target are masked full-graph networks
     (identity-core substitution); the loss is −log F, minimised until
-    ``1 − F < tol`` or ``max_steps``.  ``jit_scope`` keeps the JAX names and
+    ``1 − F < tol`` or ``max_steps``.  The overlaps contract as in
+    :func:`network_log_fidelity`: a chain of uniform bond by the transfer
+    sweep, a layered 2-local circuit by the row sweep, any other graph by
+    the rescaled pairwise executor.  ``jit_scope`` keeps the JAX names and
     selects the driver: 'fit' tests the exit before every step, 'step'
     every ``sync_every`` steps, 'chunk' after whole ``sync_every``-step
     chunks (see ``_fit_driver``).  ``identities`` overrides the substitution
@@ -166,8 +179,8 @@ def make_masked_network_fidelity_fit(
     bonds = {graph.cores[0].shape[-1], graph.cores[-1].shape[0]}
     for s in mid_shapes:
         bonds |= {s[0], s[-1]}
-    if not (_is_chain(graph) and len(mid_shapes) <= 1 and len(bonds) == 1):
-        raise NotImplementedError(_NON_CHAIN)
+    use_chain = _is_chain(graph) and len(mid_shapes) <= 1 and len(bonds) == 1
+    generic_overlap = None if use_chain else _overlap_fn(graph)
     if jit_scope not in ("fit", "step", "chunk"):
         raise ValueError(
             f"jit_scope must be 'fit', 'step' or 'chunk', got {jit_scope!r}"
@@ -181,11 +194,13 @@ def make_masked_network_fidelity_fit(
     neg_log_tol = np.float32(-float(np.log1p(-tol)))
 
     def log_abs_overlap(a, b):
-        """log |⟨A, B⟩| on already-normalised core dicts.  Unlike JAX, whose
-        masked fit always runs the einsum scan, this goes through the same
-        dispatch as ``network_log_fidelity``, so the fits run the sweep
-        kernels too; parity is still held against JAX's scan."""
-        return _chain_overlap(_chain_cores(graph, a), _chain_cores(graph, b))
+        """log |⟨A, B⟩| on already-normalised core dicts.  On chains, unlike
+        JAX, whose masked fit always runs the einsum scan, this goes through
+        the same dispatch as ``network_log_fidelity``, so the fits run the
+        sweep kernels too; parity is still held against JAX's scan."""
+        if use_chain:
+            return _chain_overlap(_chain_cores(graph, a), _chain_cores(graph, b))
+        return generic_overlap(a, b)
 
     def neg_log_f(params, mask, target_eff_n, log_tt):
         eff = _normalize(masked_cores(params, mask, idents, names, dtype))
@@ -223,4 +238,7 @@ def make_masked_network_fidelity_fit(
         return FitResult(p, -torch.expm1(-nlf), steps, o)
 
     fit.scope = jit_scope
+    # one update, and the prepared target it takes, for measuring a step alone
+    fit.drivers = drivers
+    fit.prepare = prepare
     return fit
