@@ -57,10 +57,11 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    default in complex64 with the planted 20-core mask: the first 20
    validation losses against the host's −log F at the card's cores; the
    first ``NETWORK_VALIDATE_STEPS`` steps of the validation fit (lr 1 on
-   −log F does not reach tol in its 4000 steps), reported; 1 − F from the
-   overlaps at the validation's last cores and at phase 8's validated
-   cores against the host's and against the dense fidelity of the same
-   cores; one prune pass warm-started at the planted network,
+   −log F does not converge in its 4000 steps, in JAX either), reported;
+   at phase 8's validated cores, 1 − F from the row sweep in complex128,
+   on the card and on the host, against the dense fidelity in complex128,
+   and the card's complex64 value against them within its float32
+   rounding; one prune pass warm-started at the planted network,
    ``NETWORK_PRUNE_STEPS`` steps per candidate, which must prune exactly
    the planted cores, as the same pass on the host does; fit steps/s,
    launches per fit step, idle share.  (b) The JAX flagship,
@@ -124,6 +125,13 @@ TOL_TARGET = 1e-5  # dense target, card vs host, max-abs-normalised
 # 1 - F ~ 1e-3 at the validated cores, card vs host, absolute: F ~ 0.999 in
 # float32 carries ~1e-7 of rounding per summation order
 TOL_FIT_INFID = 5e-6
+# network mode: the row sweep's 1 - F, on the card and on the host, against
+# the dense fidelity, all in complex128; the card's complex64 1 - F against
+# that, within ROUNDING_ULPS float32 epsilons of 2|log<t,o>| + |log<o,o>| +
+# |log<t,t>| (each log-overlap is a sum of per-row log-scales, rounded in
+# float32)
+TOL_NETWORK_DENSE = 1e-9
+ROUNDING_ULPS = 4
 # the brick_network phase: the JAX flagship (bench/flagship.py::run_32q),
 # cut to FLAGSHIP_STEPS validation steps (a cold 155-core wall needs tens
 # of thousands); the card's -log F is held against the host's at
@@ -949,10 +957,10 @@ def phase_brick(smi: str):
         "card": smi,
     }
     emit(rec)
-    return rec, fitted, target
+    return rec, fitted
 
 
-def phase_brick_network(smi: str, dense_fitted, dense_target) -> dict:
+def phase_brick_network(smi: str, dense_fitted) -> dict:
     import numpy as np
     import torch
 
@@ -965,7 +973,7 @@ def phase_brick_network(smi: str, dense_fitted, dense_target) -> dict:
     from tneq_tpu_torch.ops.contract import make_core_only_fn
     from tneq_tpu_torch.train.fit import identity_cores, masked_cores
     from tneq_tpu_torch.train.losses import fidelity
-    from tneq_tpu_torch.train.network_fit import network_log_fidelity
+    from tneq_tpu_torch.train.network_fit import _normalize, _overlap_fn, network_log_fidelity
     from tneq_tpu_torch.utils.device import matmul_precision
 
     def host_nlf(e, cores, t_eff):
@@ -974,7 +982,7 @@ def phase_brick_network(smi: str, dense_fitted, dense_target) -> dict:
             return float(-network_log_fidelity(e.graph, params_from_numpy(cores, "cpu"), t_eff))
 
     def pairwise_per_overlap(graph) -> int:
-        return sum(len(r.steps) for r in row_scan._schedule(graph, None, None) if r.steps)
+        return sum(len(r.steps) for r in row_scan._schedule(graph, None) if r.steps)
 
     chain_overlap.reset_launch_counts()
     transfer_step.reset_launch_counts()
@@ -1023,20 +1031,35 @@ def phase_brick_network(smi: str, dense_fitted, dense_target) -> dict:
     peak8 = torch.cuda.max_memory_allocated()
     check(math.isfinite(fid) and vsteps >= 1, f"brick_network: validation F = {fid}")
 
-    # 1 - F from the overlaps, card and host, and the dense fidelity of the
-    # same cores, at the validation's last cores and at phase 8's validated
-    # ones (1 - F ~ 1e-3 there)
-    core_fn = make_core_only_fn(exp.graph)
-    infid = {}
-    for name, cores in (("validation_end", fitted), ("dense_validated", dense_fitted)):
-        with torch.no_grad(), matmul_precision("highest"):
-            card_v = float(-torch.expm1(network_log_fidelity(exp.graph, cores, t_eff)))
-            dense_v = float(1.0 - fidelity(core_fn(cores), dense_target))
-        host_v = -math.expm1(-host_nlf(host, params_to_numpy(cores), t_eff_h))
-        infid[name] = {"card": card_v, "host": host_v, "dense_card": dense_v}
-        check(abs(card_v - host_v) <= TOL_FIT_INFID and abs(card_v - dense_v) <= TOL_FIT_INFID,
-              f"brick_network: 1 - F at the {name} cores: card {card_v}, host {host_v}, "
-              f"dense {dense_v}")
+    # network mode computes the fidelity: at phase 8's validated cores
+    # (1 - F ~ 1e-3), the row sweep in complex128, on the card and on the
+    # host, equals the dense fidelity in complex128, and the card's
+    # complex64 value is within the float32 rounding of its three O(20)
+    # log-overlaps of that reference
+    host_cores = {k: v.cpu().to(torch.complex128) for k, v in dense_fitted.items()}
+    host_target = {k: v.to(torch.complex128) for k, v in t_eff_h.items()}
+    core_fn = make_core_only_fn(host.graph)
+    overlap = _overlap_fn(host.graph)
+    with torch.no_grad(), matmul_precision("highest"):
+        card_v = float(-torch.expm1(network_log_fidelity(exp.graph, dense_fitted, t_eff)))
+        card128 = float(-torch.expm1(network_log_fidelity(
+            exp.graph, {k: v.to(torch.complex128) for k, v in dense_fitted.items()},
+            {k: v.to(torch.complex128) for k, v in t_eff.items()})))
+        o_n, t_n = _normalize(host_cores), _normalize(host_target)
+        terms = [float(overlap(*ab)) for ab in ((o_n, t_n), (o_n, o_n), (t_n, t_n))]
+        net64 = -math.expm1(2.0 * terms[0] - terms[1] - terms[2])
+        dense64 = float(1.0 - fidelity(core_fn(host_cores), core_fn(host_target)))
+    tol_round = ROUNDING_ULPS * float(np.finfo(np.float32).eps) * (
+        2.0 * abs(terms[0]) + abs(terms[1]) + abs(terms[2]))
+    infid = {"card_complex64": card_v, "card_network_complex128": card128,
+             "host_network_complex128": net64, "host_dense_complex128": dense64,
+             "log_overlaps": terms, "card_tolerance": tol_round}
+    check(max(abs(net64 - dense64), abs(card128 - dense64)) <= TOL_NETWORK_DENSE,
+          f"brick_network: 1 - F in complex128, row sweep {card128} on the card and "
+          f"{net64} on the host vs dense {dense64}")
+    check(abs(card_v - net64) <= tol_round,
+          f"brick_network: 1 - F on the card {card_v} vs {net64} in complex128 "
+          f"(float32 rounding bound {tol_round})")
 
     # one pass of the prune loop warm-started at the planted network, card
     # then host
@@ -1258,8 +1281,8 @@ def main() -> int:
         transfer = phase_transfer_kernels()
         born = phase_born_rule(setup["nvidia_smi"])
         cli = phase_cli(setup["nvidia_smi"])
-        _, dense_fitted, dense_target = phase_brick(setup["nvidia_smi"])
-        phase_brick_network(setup["nvidia_smi"], dense_fitted, dense_target)
+        _, dense_fitted = phase_brick(setup["nvidia_smi"])
+        phase_brick_network(setup["nvidia_smi"], dense_fitted)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -5,7 +5,8 @@ rescaling, ``log_abs_einsum`` and the two-network log overlaps.
 Operands are drawn in numpy and handed to both packages; JAX runs on the
 CPU at 'highest' precision, under ``jax.jit`` (its eager pairwise loop
 dispatches op by op).  Paths are exact; log values agree within 1e-5
-relative, gradients within 1e-4 of their max-abs (complex gradients against
+relative to max(|value|, 1) (a log overlap is a sum of O(1) log-scales,
+so its rounding does not shrink with the value), gradients within 1e-4 of their max-abs (complex gradients against
 the conjugate of JAX's: torch's convention for a real loss).
 """
 
@@ -147,7 +148,7 @@ def test_execute_pairwise_matches_jax(dtype, rescale):
         (jval, (jfinal, jlogs)), jg = jax.jit(
             jax.value_and_grad(j_loss, argnums=(0, 1, 2, 3), has_aux=True))(
             *[jnp.asarray(o) for o in ops])
-    np.testing.assert_allclose(float(val.detach()), float(jval), rtol=RTOL_V)
+    np.testing.assert_allclose(float(val.detach()), float(jval), rtol=RTOL_V, atol=RTOL_V)
     _grads_close(tg, jg)
     if rescale:
         assert abs(abs(complex(final.detach())) - 1.0) < 1e-6  # the last step's rescale
@@ -184,9 +185,9 @@ def test_log_abs_einsum_matches_jax(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
 @pytest.mark.parametrize("wide_b", [False, True])
 def test_log_abs_two_network_fn_matches_jax(dtype, wide_b):
-    """5 x 3 brick wall; ``wide_b``: the B side has rank-3 internal bonds."""
-    ga, gaj = graphs(5, 3)
-    gb, gbj = graphs(5, 3, wide_bonds=wide_b)
+    """4 x 2 brick wall; ``wide_b``: the B side has rank-3 internal bonds."""
+    ga, gaj = graphs(4, 2)
+    gb, gbj = graphs(4, 2, wide_bonds=wide_b)
     a, b = cores(ga, dtype, 0), cores(gb, dtype, 1)
     fn = tpair.make_log_abs_two_network_fn(ga, gb if wide_b else None)
     jfn = jpair.make_log_abs_two_network_fn(gaj, gbj if wide_b else None)
@@ -195,7 +196,7 @@ def test_log_abs_two_network_fn_matches_jax(dtype, wide_b):
     tg = torch.autograd.grad(val, list(leaves.values()))
     with jax.default_matmul_precision("highest"):
         jval, jg = jax.jit(jax.value_and_grad(lambda p: jfn(p, _jx(b))))(_jx(a))
-    np.testing.assert_allclose(float(val.detach()), float(jval), rtol=RTOL_V)
+    np.testing.assert_allclose(float(val.detach()), float(jval), rtol=RTOL_V, atol=RTOL_V)
     _grads_close([g.numpy() for g in tg], [jg[k] for k in leaves])
     # signed: (mantissa, log_scale), summable across slices
     mant, logs = tpair.make_log_abs_two_network_fn(ga, gb if wide_b else None, signed=True)(
@@ -204,11 +205,11 @@ def test_log_abs_two_network_fn_matches_jax(dtype, wide_b):
         jmant, jlogs = jax.jit(jpair.make_log_abs_two_network_fn(
             gaj, gbj if wide_b else None, signed=True))(_jx(a), _jx(b))
     np.testing.assert_allclose(complex(mant), complex(jmant), rtol=RTOL_V, atol=1e-6)
-    np.testing.assert_allclose(float(logs), float(jlogs), rtol=RTOL_V)
+    np.testing.assert_allclose(float(logs), float(jlogs), rtol=RTOL_V, atol=RTOL_V)
     if not wide_b:  # the same-graph form, as the fits call it
         same = tpair.make_log_abs_overlap_fn(ga)(params_from_numpy(a, "cpu"),
                                                  params_from_numpy(b, "cpu"))
-        np.testing.assert_allclose(float(same), float(jval), rtol=RTOL_V)
+        np.testing.assert_allclose(float(same), float(jval), rtol=RTOL_V, atol=RTOL_V)
 
 
 def test_overlaps_agree_with_the_row_sweep():

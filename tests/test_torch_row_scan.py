@@ -49,15 +49,9 @@ def graphs(n, cells, wide_bonds=False):
     return parse_graph(dsl), j_parse(dsl)
 
 
-def cores(g, dtype, seed, batch=None):
-    """Cores of ``g`` from ``init_params``; with ``batch``, a stack of
-    ``batch`` perturbed copies."""
-    p = params_to_numpy(init_params(g, seed, dtype, device="cpu"))
-    if batch is None:
-        return p
-    rng = np.random.default_rng(seed)
-    return {k: np.stack([v + 0.2 * i * rng.standard_normal(v.shape).astype(v.dtype)
-                         for i in range(batch)]) for k, v in p.items()}
+def cores(g, dtype, seed):
+    """Cores of ``g`` from ``init_params``, as numpy."""
+    return params_to_numpy(init_params(g, seed, dtype, device="cpu"))
 
 
 def _jx(p):
@@ -89,36 +83,35 @@ def test_build_row_steps_match_jax(n, cells):
     assert trow.build_row_steps(gt, gbt) == jrow.build_row_steps(gj, gbj)
 
 
-@pytest.mark.parametrize("batch", [None, 3])
-def test_row_plans_match_jax(batch):
-    """Every row's plan, at the row sweep's cap (``choose_path``, batched
-    equation included), is JAX's; one-operand rows run one einsum."""
+def test_row_plans_match_jax():
+    """Every row's plan, at the row sweep's cap (``choose_path``), is
+    JAX's; one-operand rows run one einsum."""
     gt, gj = graphs(6, 4)
-    rows = trow._schedule(gt, None, batch)
-    jrow.make_row_scan_log_overlap_fn(gj, batch=batch)  # JAX writes its plans into its steps
+    rows = trow._schedule(gt, None)
+    jrow.make_row_scan_log_overlap_fn(gj)  # JAX writes its plans into its steps
     jsteps = jrow._cached_steps(gj, None)
     assert len(rows) == len(jsteps) == 6
     for row, js in zip(rows, jsteps):
-        plan = js[("plan", batch)]
+        plan = js[("plan", None)]
         if plan is None:
             assert row.steps is None or len(row.steps) == 1
         else:
             assert (row.equation, list(row.steps)) == (plan[0], plan[1])
     assert rows[-1].steps is None  # the last row: a trace of one operand
-    assert trow._schedule(gt, None, batch) is rows  # cached
+    assert trow._schedule(gt, None) is rows  # cached
 
 
 def test_flagship_plans_fit_the_card():
-    """At 8 x 5 each overlap runs 69 pairwise einsums, at 32 x 5 309; a
-    batched step's terms stay within CUDA's 25 dimensions up to 6 cells."""
+    """At 8 x 5 each overlap runs 69 pairwise einsums, at 32 x 5 309; the
+    steps' terms stay within CUDA's 25 dimensions up to 6 cells."""
     for (n, cells), count in (((8, 5), 69), ((32, 5), 309)):
         g = parse_graph(brick_dsl(n, cells))
-        rows = trow._schedule(g, None, None)
+        rows = trow._schedule(g, None)
         assert sum(len(r.steps) for r in rows if r.steps) == count
-    for cells, rank in ((5, 21), (6, 25)):
+    for cells, rank in ((5, 20), (6, 24)):
         g = parse_graph(brick_dsl(8, cells))
         assert trow.supports_row_scan(g)
-        rows = trow._schedule(g, None, 3)
+        rows = trow._schedule(g, None)
         assert max(tpair._lettered(eq)[1] for r in rows if r.steps
                    for _, _, eq in r.steps) == rank <= tpair.CUDA_MAX_DIMS
 
@@ -142,7 +135,7 @@ def test_supports_row_scan_and_same_topology_match_jax():
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
-@pytest.mark.parametrize("n,cells", [(5, 3), (6, 4)])
+@pytest.mark.parametrize("n,cells", [(4, 2), (5, 3)])
 def test_row_scan_log_overlap_matches_jax(n, cells, dtype):
     gt, gj = graphs(n, cells)
     a, b = cores(gt, dtype, 0), cores(gt, dtype, 1)
@@ -152,27 +145,11 @@ def test_row_scan_log_overlap_matches_jax(n, cells, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
-def test_batched_row_scan_matches_jax(dtype):
-    gt, gj = graphs(5, 3)
-    a, b = cores(gt, dtype, 2, batch=3), cores(gt, dtype, 3, batch=3)
-    val, tg, jval, jg = _value_and_grads(trow.make_row_scan_log_overlap_fn(gt, batch=3),
-                                         jrow.make_row_scan_log_overlap_fn(gj, batch=3), a, b)
-    assert val.shape == (3,) and len(set(val.tolist())) == 3
-    _close(val, tg, jval, jg)
-    # each entry is the unbatched overlap of its own pair
-    one = trow.make_row_scan_log_overlap_fn(gt)
-    for i in range(3):
-        vi = one(params_from_numpy({k: v[i] for k, v in a.items()}, "cpu"),
-                 params_from_numpy({k: v[i] for k, v in b.items()}, "cpu"))
-        np.testing.assert_allclose(float(vi), float(val[i]), rtol=RTOL_V, atol=RTOL_V)
-
-
-@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
 def test_graph_b_and_signed_match_jax(dtype):
     """The B side with rank-3 internal bonds; ``signed`` gives the mantissa
     and log-scale, whose log-abs is the overlap."""
-    gt, gj = graphs(5, 3)
-    gbt, gbj = graphs(5, 3, wide_bonds=True)
+    gt, gj = graphs(4, 2)
+    gbt, gbj = graphs(4, 2, wide_bonds=True)
     a, b = cores(gt, dtype, 4), cores(gbt, dtype, 5)
     got = _value_and_grads(trow.make_row_scan_log_overlap_fn(gt, graph_b=gbt),
                            jrow.make_row_scan_log_overlap_fn(gj, graph_b=gbj), a, b)
@@ -183,12 +160,13 @@ def test_graph_b_and_signed_match_jax(dtype):
         jmant, jlogs = jax.jit(jrow.make_row_scan_log_overlap_fn(gj, graph_b=gbj, signed=True))(
             _jx(a), _jx(b))
     np.testing.assert_allclose(complex(mant), complex(jmant), rtol=RTOL_V, atol=1e-6)
-    np.testing.assert_allclose(float(logs), float(jlogs), rtol=RTOL_V)
-    np.testing.assert_allclose(float(logs + torch.log(mant.abs())), float(got[0]), rtol=RTOL_V)
+    np.testing.assert_allclose(float(logs), float(jlogs), rtol=RTOL_V, atol=RTOL_V)
+    np.testing.assert_allclose(float(logs + torch.log(mant.abs())), float(got[0]),
+                               rtol=RTOL_V, atol=RTOL_V)
     # the generic executor contracts the same two-graph overlap
     generic = tpair.make_log_abs_two_network_fn(gt, gbt)(params_from_numpy(a, "cpu"),
                                                          params_from_numpy(b, "cpu"))
-    np.testing.assert_allclose(float(generic), float(got[0]), rtol=RTOL_V)
+    np.testing.assert_allclose(float(generic), float(got[0]), rtol=RTOL_V, atol=RTOL_V)
 
 
 def test_row_scan_gradcheck_complex128():

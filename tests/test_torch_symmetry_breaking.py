@@ -224,9 +224,9 @@ def test_brick_cli_runs_on_the_cpu(tmp_path, capsys):
 NET = dict(BRICK, fidelity_mode="network")
 
 
-def _brick_net(cores_np):
-    je = js.make_experiment(js.SymmetryBreakingConfig(**NET))
-    te = ts.make_experiment(ts.SymmetryBreakingConfig(device="cpu", **NET))
+def _brick_net(cores_np, **kw):
+    je = js.make_experiment(js.SymmetryBreakingConfig(**dict(NET, **kw)))
+    te = ts.make_experiment(ts.SymmetryBreakingConfig(device="cpu", **dict(NET, **kw)))
     je.init_params = lambda key: _jx(cores_np)
     te.init_params = lambda gen: params_from_numpy(cores_np, "cpu")
     return je, te
@@ -256,14 +256,14 @@ def test_brick_network_validate_parity():
 
 
 def test_brick_network_prune_loop_parity():
-    """Warm-started on the manifold near the target: the same cores pruned
-    after the same attempts as JAX."""
+    """Warm-started on the manifold near the target, 30 steps per
+    candidate: the same cores pruned after the same attempts as JAX."""
     cores = _brick_cores(3)
-    je, te = _brick_net(cores)
+    je, te = _brick_net(cores, prune_steps=30)
     mask = np.ones(6, np.float32)
     mask[5] = 0.0
     rng = np.random.default_rng(0)
-    warm = {k: _on_manifold(v + 0.05 * (rng.standard_normal(v.shape)
+    warm = {k: _on_manifold(v + 0.02 * (rng.standard_normal(v.shape)
                                         + 1j * rng.standard_normal(v.shape)))
             for k, v in cores.items()}
     seed = 5
@@ -273,3 +273,57 @@ def test_brick_network_prune_loop_parity():
                                   seed, verbose=False, warm_params=params_from_numpy(warm, "cpu"))
     assert pt == pj == [5]
     assert at == aj == 11
+
+
+@pytest.mark.slow
+def test_reference_default_network_validation_stalls_as_in_jax():
+    """The reference default (8 x 5, complex64, SGD-G lr 1, momentum 0.9)
+    in network mode, from one numpy target (the planted mask of the
+    reference CLI) and one numpy start, the retraction off in both
+    packages.  The first 5 steps agree within 1e-4 relative; after that
+    rounding differences grow about tenfold a step (each lr-1 update is a
+    rotation of unit norm), and over 200 steps neither package moves
+    -log F off the level of an unrelated pair (log 2^16 = 11.1): the
+    validation fit does not converge in JAX either.  Run with ``-s`` to
+    see both trajectories."""
+    from tneq_tpu.optim.stiefel import sgdg as j_sgdg
+    from tneq_tpu.train.network_fit import make_masked_network_fidelity_fit as j_make_fit
+    from tneq_tpu_torch.optim.stiefel import sgdg as t_sgdg
+    from tneq_tpu_torch.train.network_fit import make_masked_network_fidelity_fit as t_make_fit
+
+    planted = [2, 3, 5, 8, 9, 12, 13, 14, 15, 17, 18, 20, 21, 23, 25, 26, 29, 31, 32, 33]
+    te = ts.make_experiment(ts.SymmetryBreakingConfig(device="cpu", fidelity_mode="network"))
+    je = js.make_experiment(js.SymmetryBreakingConfig(fidelity_mode="network"))
+    cfg, g = te.cfg, te.graph
+    t_np = params_to_numpy(init_params(g, 0, torch.complex64, device="cpu"))
+    p_np = params_to_numpy(init_params(g, 2, torch.complex64, device="cpu"))
+    tmask = np.ones(g.ncores, np.float32)
+    tmask[planted] = 0.0
+    steps, first = 200, 5
+
+    ft = t_make_fit(g, t_sgdg(cfg.validate_lr, momentum=cfg.momentum, retraction_prob=0.0),
+                    cfg.validate_steps, dtype=torch.complex64, device="cpu")
+    t_eff, log_tt = ft.prepare(params_from_numpy(t_np, "cpu"), torch.as_tensor(tmask))
+    p = params_from_numpy(p_np, "cpu")
+    o, mask = ft.drivers.optimizer.init(p), te.mask_vector([])
+    port = []
+    for _ in range(steps):
+        p, o, nlf = ft.drivers.step(p, o, mask, t_eff, log_tt)
+        port.append(float(nlf))
+
+    fj = j_make_fit(je.graph, j_sgdg(cfg.validate_lr, momentum=cfg.momentum, retraction_prob=0.0),
+                    cfg.validate_steps, dtype=jnp.complex64, jit_scope="chunk", sync_every=1)
+    jt_eff, jlog_tt = fj.prepare(_jx(t_np), jnp.asarray(tmask))
+    jp = _jx(p_np)
+    jo, jmask = fj.make_opt_state(jp), je.mask_vector([])
+    ref = []
+    for k in [1] * first + [5] * ((steps - first) // 5):
+        jp, jo, nlf = fj.chunk(k)(jp, jo, jmask, jt_eff, jlog_tt)
+        ref += [float("nan")] * (k - 1) + [float(nlf)]
+
+    print("step  -log F port  -log F JAX")
+    for i in list(range(first)) + list(range(19, steps, 20)):
+        print(f"{i + 1:4d}  {port[i]:11.6f}  {ref[i]:10.6f}")
+    np.testing.assert_allclose(port[:first], ref[:first], rtol=1e-4)
+    late_port, late_ref = port[steps // 2:], [x for x in ref[steps // 2:] if x == x]
+    assert min(late_port) > 5.0 and min(late_ref) > 5.0

@@ -40,6 +40,7 @@ from typing import Dict, Tuple
 import torch
 
 from . import cuda_build
+from .pairwise import _TINY, _rescale
 
 __all__ = [
     "chain_pair_to_mv",
@@ -52,7 +53,6 @@ __all__ = [
     "sweep_plan",
 ]
 
-_TINY = 1e-30
 MAX_S = 1024  # JAX's cap (chain_overlap.py:340-341); the kernels take any S up to it
 
 # The sweep kernels' launch plan (csrc/chain_sweep.cu, which checks it)
@@ -95,16 +95,11 @@ def chain_pair_to_mv(a, b):
     return v0, m.reshape(n, c * c, f * f), w
 
 
-def _rescale(v, logs):
-    s = (v.abs().max() + _TINY).detach()
-    return v / s, logs + torch.log(s)
-
-
 def mv_chain_log_overlap(v0, M, w) -> torch.Tensor:
     """Plain PyTorch sweep of the M-form: ``log |v0 . (prod_i M_i) . w|``
     with per-site max-abs rescaling (detached scales), differentiable by
     autograd; any dtype."""
-    v, logs = _rescale(v0, torch.zeros((), dtype=v0.real.dtype, device=v0.device))
+    v, logs = _rescale(v0)
     if M is not None:
         for Mi in M:
             v, logs = _rescale(v @ Mi, logs)

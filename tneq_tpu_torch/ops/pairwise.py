@@ -218,18 +218,11 @@ def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
     return torch.einsum(lettered, *operands)
 
 
-def _rescale(t: torch.Tensor, logs: Optional[torch.Tensor] = None, batched: bool = False):
+def _rescale(t: torch.Tensor, logs: Optional[torch.Tensor] = None):
     """``t / s`` and ``logs + log s`` for ``s = detach(max|t| + tiny)``, real:
-    over all axes, or per entry of the leading axis when ``batched``."""
-    m = t.detach().abs()
-    if not batched:
-        m = m.max()
-    elif t.ndim > 1:
-        m = m.amax(dim=tuple(range(1, t.ndim)))
-    s = m + _TINY
-    step_log = torch.log(s)
-    t = t / s.reshape(s.shape + (1,) * (t.ndim - s.ndim))
-    return t, step_log if logs is None else logs + step_log
+    the max-abs rescale of every sweep and executor of the port."""
+    s = t.detach().abs().max() + _TINY
+    return t / s, torch.log(s) if logs is None else logs + torch.log(s)
 
 
 def execute_pairwise(

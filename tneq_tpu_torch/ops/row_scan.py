@@ -8,9 +8,8 @@ that cut (``r^(4·n_cells)`` entries, independent of the qubit count), and
 each row absorbs its cores in one einsum, planned as pairwise steps under a
 memory cap of a small multiple of the environment
 (``ops/pairwise.choose_path``) and run by ``ops/pairwise.execute_pairwise``.
-A max-abs rescale after every row (detached scales, per batch entry when
-batched) keeps the sweep float32-stable at any depth, with exact gradients
-of the LOG overlap.
+A max-abs rescale after every row (detached scales) keeps the sweep
+float32-stable at any depth, with exact gradients of the LOG overlap.
 
 JAX runs the identical bulk rows as one ``lax.scan`` over stacked cores
 and rematerialises every row (``jax.checkpoint``) to keep its program small
@@ -217,34 +216,20 @@ def build_row_steps(graph: CircuitGraph, graph_b: Optional[CircuitGraph] = None)
     return steps
 
 
-def _batched_eq(equation: str) -> str:
-    """Prefix a fresh batch symbol (``get_symbol(300+)``) to every operand
-    and to the output."""
-    used = set(equation)
-    k = 300
-    while get_symbol(k) in used:
-        k += 1
-    bsym = get_symbol(k)
-    lhs, rhs = equation.split("->")
-    return ",".join(bsym + t for t in lhs.split(",")) + "->" + bsym + rhs
-
-
 class _Row(NamedTuple):
     cores: Tuple[str, ...]
     has_env: bool
-    equation: str  # batched where the sweep is
+    equation: str
     steps: Optional[tuple]  # pairwise steps; None: one operand, one einsum
 
 
 @functools.lru_cache(maxsize=64)
-def _schedule(
-    graph: CircuitGraph, graph_b: Optional[CircuitGraph], batch: Optional[int]
-) -> Tuple[_Row, ...]:
+def _schedule(graph: CircuitGraph, graph_b: Optional[CircuitGraph]) -> Tuple[_Row, ...]:
     """The rows of the sweep with their pairwise plans.  A row of more than
     two operands is planned by ``choose_path`` under the cap
-    ``max(64·env, 2^16)`` (times ``batch``), env the larger of its in and
-    out environments: JAX's tight guard, which keeps every intermediate
-    within a small multiple of the environment."""
+    ``max(64·env, 2^16)``, env the larger of its in and out environments:
+    JAX's tight guard, which keeps every intermediate within a small
+    multiple of the environment."""
     gb = graph_b if graph_b is not None else graph
     rows = []
     for step in build_row_steps(graph, graph_b):
@@ -257,10 +242,6 @@ def _schedule(
             int(np.prod(step["env_out_shape"], dtype=np.int64)),
         )
         cap = max(64 * cap, 1 << 16)
-        if batch is not None:
-            eq = _batched_eq(eq)
-            shapes = [(batch,) + tuple(sh) for sh in shapes]
-            cap *= batch
         if len(shapes) == 1:
             plan = None
         elif len(shapes) == 2:
@@ -273,7 +254,6 @@ def _schedule(
 
 def make_row_scan_log_overlap_fn(
     graph: CircuitGraph,
-    batch: Optional[int] = None,
     graph_b: Optional[CircuitGraph] = None,
     signed: bool = False,
 ):
@@ -282,8 +262,6 @@ def make_row_scan_log_overlap_fn(
     B-side cores are conjugated (Hermitian overlap).  Raises ``ValueError``
     when the topology is unsupported (check :func:`supports_row_scan`).
 
-    ``batch=B``: every core carries a leading batch axis of size B and the
-    result is a ``[B]`` vector of log-overlaps, rescaled per batch entry.
     ``graph_b``: the B side with other internal bond ranks (same
     topology).  ``signed=True``: return ``(mantissa, log_scale)`` with
     ``value = mantissa·exp(log_scale)``, the form in which slice partials
@@ -291,7 +269,7 @@ def make_row_scan_log_overlap_fn(
     """
     if not supports_row_scan(graph, graph_b):
         raise ValueError("graph is not a layered 2-local circuit")
-    rows = _schedule(graph, graph_b, batch)
+    rows = _schedule(graph, graph_b)
 
     def fn(params_a, params_b):
         env, logs = None, None
@@ -303,7 +281,7 @@ def make_row_scan_log_overlap_fn(
                 out = einsum(row.equation, ops[0])
             else:
                 out = execute_pairwise(row.steps, ops)
-            env, logs = _rescale(out, logs, batched=batch is not None)
+            env, logs = _rescale(out, logs)
         if signed:
             return env, logs
         return logs + torch.log(torch.abs(env) + _TINY)

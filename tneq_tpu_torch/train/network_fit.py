@@ -31,9 +31,9 @@ import numpy as np
 import torch
 
 from ..graph.dsl import CircuitGraph
-from ..ops.chain_overlap import _TINY, _rescale, fused_chain_log_overlap, fused_chain_supported
+from ..ops.chain_overlap import fused_chain_log_overlap, fused_chain_supported
 from ..ops.mps_sweep import is_mps_chain
-from ..ops.pairwise import make_log_abs_overlap_fn
+from ..ops.pairwise import _TINY, _rescale, make_log_abs_overlap_fn
 from ..ops.row_scan import make_row_scan_log_overlap_fn, supports_row_scan
 from ..ops.scaling import auto_scale
 from ..optim.stiefel import GradientTransformation
@@ -81,7 +81,7 @@ def _chain_log_overlap(a, b) -> torch.Tensor:
     """
     (fa, ma, la), (fb, mb, lb) = a, b
     v = torch.einsum("xiyc,xiye->ce", fa, fb.conj())
-    v, logs = _rescale(v, torch.zeros((), dtype=v.real.dtype, device=v.device))
+    v, logs = _rescale(v)
     if ma is not None:
         for A, B in zip(ma, mb):
             v = torch.einsum("ce,cxyf->exyf", v, A)
