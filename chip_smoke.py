@@ -65,12 +65,30 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    ``NETWORK_PRUNE_STEPS`` steps per candidate, which must prune exactly
    the planted cores, as the same pass on the host does; fit steps/s,
    launches per fit step, idle share.  (b) The JAX flagship,
-   32 x 5 in float32 (155 cores), 50 validation steps from its init:
+   32 x 5 in float32 (155 cores), 30 validation steps from its init:
    −log F falls, matches the host's at three of those steps, 309 pairwise
    einsums per overlap; steps/s, launches, busy and idle share, top
    kernels, peak memory.  (c) The CLI with ``--fidelity-mode network`` at
    4 x 2 in a process of its own, on the card and on the host, with the
-   same result.
+   same result;
+10. batched — the batched prune (``symmetry_breaking_batched``: lockstep
+   lanes under ``torch.func.vmap``), one JSON line per part.  (a), run
+   right after phase 2: B1/B2 with a lane axis at the bench shape, 1 and 8
+   lanes, against the plain version with the lane axis and against one
+   launch per lane, one launch per sweep at any lane count, times per call
+   and per lane, bounds.  (b) The batched prune of the 8 x 5 dense wall
+   (complex64, lane_chunk 8, k = 16) with one planted core, warm-started
+   at its planted network: the accepted core and the attempts equal the
+   host's, each lane's 1 - F at the card's lane params equals the host's;
+   lane-steps/s, launches per lane step, idle share, peak memory.  (c) The
+   same in network mode (k = 8), the lanes' -log F against the host's.  (d) Phase
+   4's MPS experiment with ``--batched`` semantics: it prunes the planted
+   [3, 7], B1/B2 launches per chunk step equal at 1 and 8 lanes.  (e) Pair
+   mode: 20 prune steps from phase 8's validated cores in complex64-pair
+   against complex64, and the CLI with ``--dtype complex64-pair
+   --batched`` at 4 x 2 on card and host.  (f) One chunk of 8 lanes of
+   the 32 x 5 float32 flagship in network mode: lane-steps/s, launches,
+   peak memory.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -114,12 +132,13 @@ CLI_STEPS = 200
 CHECK_STEPS = 20  # card-vs-host comparisons of the two training phases
 MIDDLE_STEPS = 5  # sites of the transfer sweep of an 8-qubit chain
 # the brick phase: the reference CLI's planted mask of the 8 x 5 wall, and
-# the cuts that keep the phase near 150 s (the defaults are 5000 prune
+# the cuts that keep the phase near 100 s (the defaults are 5000 prune
 # steps and, for the CLI, 20 restarts).  The prune pass starts at the
 # planted network, where each planted candidate is accepted at once and
-# each other one stays far above tol after its 60 steps (1 - F >= 1e-2).
+# each other one stays far above tol after its steps (1 - F >= 1e-2 after
+# 60).
 BRICK_MASK = [2, 3, 5, 8, 9, 12, 13, 14, 15, 17, 18, 20, 21, 23, 25, 26, 29, 31, 32, 33]
-BRICK_PRUNE_STEPS = 60
+BRICK_PRUNE_STEPS = 20
 BRICK_CLI_PRUNE_STEPS = 100
 TOL_TARGET = 1e-5  # dense target, card vs host, max-abs-normalised
 # 1 - F ~ 1e-3 at the validated cores, card vs host, absolute: F ~ 0.999 in
@@ -134,24 +153,47 @@ TOL_NETWORK_DENSE = 1e-9
 ROUNDING_ULPS = 4
 # the brick_network phase: the JAX flagship (bench/flagship.py::run_32q),
 # cut to FLAGSHIP_STEPS validation steps (a cold 155-core wall needs tens
-# of thousands); the card's -log F is held against the host's at
-# FLAGSHIP_CHECK_AT; pairwise einsums per overlap of its row sweep
+# of thousands; at lr 1 its -log F first rises: 46.37 -> 47.09 in 20
+# steps, 44.61 in 30, on an H100); the card's -log F is held against the
+# host's at FLAGSHIP_CHECK_AT; pairwise einsums per overlap of its row sweep
 FLAGSHIP_QUBITS, FLAGSHIP_CELLS = 32, 5
-FLAGSHIP_STEPS = 50
-FLAGSHIP_CHECK_AT = (0, 24, 49)
+FLAGSHIP_STEPS = 30
+FLAGSHIP_CHECK_AT = (0, 14, 29)
 FLAGSHIP_PAIRWISE = 309
 # the network-mode CLI at 4 x 2: its first target stalls near F = 0.45
 # (host rehearsal), so 400 validation steps, not 4000, reject it
 NETWORK_CLI_VALIDATE_STEPS = 400
-# the 8 x 5 network-mode fit is host-bound near 9 steps/s on an H100 (700 W)
-# and ~2 steps/s on the host.  At the default validation budget (4000
+# the 8 x 5 network-mode fit is host-bound near 6-9 steps/s on an H100
+# (700 W) and ~2 steps/s on the host.  At the default validation budget (4000
 # steps, lr 1) -log F does not fall: 446 s, ending at 1 - F = 0.99999.  So
 # the phase runs the first NETWORK_VALIDATE_STEPS of that fit, and its
 # prune pass gives each candidate NETWORK_PRUNE_STEPS steps (accepted
 # candidates exit at once, rejected ones stay far above tol), which the
 # host repeats.
-NETWORK_VALIDATE_STEPS = 300
-NETWORK_PRUNE_STEPS = 5
+NETWORK_VALIDATE_STEPS = 150
+NETWORK_PRUNE_STEPS = 3
+# the batched phase: lane-batched B1/B2 at the bench shape; the batched
+# prune at lane_chunk 8 and k = 16 steps per exit test (8 in network mode,
+# where a lane step takes ~0.3 s), cut to one chunk of steps per piece
+# (default 5000 prune steps), of the 8 x 5 wall with one
+# planted core (the reference CLI plants 20), warm at its planted network:
+# the planted lane is at F = 1, every other above 1 - F = 0.5 (host
+# rehearsal), so the first round accepts it and the second none.  Launches
+# and idle share are read from one vmapped step of a piece's lanes.
+LANE_COUNTS = (1, 8)
+LANE_CHUNK = 8
+BATCHED_K = 16
+BATCHED_K_NETWORK = 8
+BATCHED_PLANTED = [5]
+# a lane's metric at the card's lane params, card vs host: 1e-4 of
+# max(1, |metric|) (-log F is a difference of O(1)..O(20) log-overlaps)
+TOL_LANE = 1e-4
+# complex64-pair vs complex64 on the card, 20 prune steps from phase 8's
+# validated cores (1 - F ~ 1e-3): the same float32 sums in another order,
+# at most 4 float32 epsilons of F ~ 1 apart in a host rehearsal; the bound
+# is about 17
+PAIR_STEPS = 20
+TOL_PAIR = 1e-6
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -244,13 +286,13 @@ def _bound(nbytes: float, flops: float) -> dict:
             "bound_by": "bytes" if tb >= tf else "operations"}
 
 
-def sweep_bounds(n: int, S: int) -> dict:
-    """B1/B2: each input read once, each output written once, over the
-    work the sweep does."""
-    fwd_bytes = 4 * (n * S * S + 2 * S + n * S + n + 2 + S)
-    fwd_flops = 2 * n * S * S
-    bwd_bytes = 4 * (S + n * S * S + n * S + n + n * S * S + S)
-    bwd_flops = 3 * n * S * S
+def sweep_bounds(n: int, S: int, lanes: int = 1) -> dict:
+    """B1/B2 over ``lanes`` sweeps: each input read once, each output
+    written once, over the work the sweeps do."""
+    fwd_bytes = lanes * 4 * (n * S * S + 2 * S + n * S + n + 2 + S)
+    fwd_flops = lanes * 2 * n * S * S
+    bwd_bytes = lanes * 4 * (S + n * S * S + n * S + n + n * S * S + S)
+    bwd_flops = lanes * 3 * n * S * S
     return {"chain_sweep_fwd": _bound(fwd_bytes, fwd_flops),
             "chain_sweep_bwd": _bound(bwd_bytes, bwd_flops)}
 
@@ -398,19 +440,17 @@ def _profile_steps(step, step_ms: float, steps: int = 5) -> dict:
         for _ in range(steps):
             step()
         torch.cuda.synchronize()
-    by_name = {}
-    for ev in prof.key_averages():
-        if ev.device_time_total and ev.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[ev.key] = ev.device_time_total / 1e3 / steps  # ms per step
+    kernels = [ev for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {ev.key: ev.device_time_total / 1e3 / steps  # ms per step
+               for ev in kernels if ev.device_time_total}
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return {
         "steps": steps,
         "device_busy_ms_per_step": busy if busy else None,
         "device_idle_share": (1.0 - busy / step_ms) if busy else None,
-        "kernel_launches_per_step": sum(
-            ev.count for ev in prof.key_averages()
-            if ev.device_type == torch.autograd.DeviceType.CUDA) / steps,
+        "kernel_launches_per_step": sum(ev.count for ev in kernels) / steps,
         "top_kernels_ms_per_step": {k[:80]: v for k, v in top} if top else None,
     }
 
@@ -579,7 +619,7 @@ def phase_experiment() -> dict:
                   "neg_log_f_rel_err": nlf_err, "params_rel_err": p_err},
     }
     emit(rec)
-    return rec
+    return rec, (exp, target, fitted)
 
 
 def _sweep_inputs(n: int, B: int, D: int, K: int, complex_: bool, seed: int, dev):
@@ -837,7 +877,6 @@ def phase_brick(smi: str):
     )
     from tneq_tpu_torch.model.qctn import params_from_numpy, params_to_numpy
     from tneq_tpu_torch.ops import chain_overlap, transfer_step
-    from tneq_tpu_torch.train.fit import identity_cores, masked_cores
 
     cfg = SymmetryBreakingConfig(device="cuda", max_outer_iterations=1,
                                  prune_steps=BRICK_PRUNE_STEPS)
@@ -894,22 +933,17 @@ def phase_brick(smi: str):
     # one pass of the prune loop, warm-started at the planted network: the
     # target's own cores (drawn again from seed 0) with identities in the
     # planted places.  It must return the planted set, in the host's order.
-    def planted(e):
-        idents = {k: torch.as_tensor(v).to(device=e.device, dtype=cfg.dtype)
-                  for k, v in identity_cores(e.graph, cfg.dtype).items()}
-        return masked_cores(e.init_params(0), e.mask_vector(BRICK_MASK), idents,
-                            e.graph.core_names, cfg.dtype)
-
     t0 = time.perf_counter()
-    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0, warm_params=planted(exp),
-                                         verbose=False)
+    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0,
+                                         warm_params=_planted(exp, BRICK_MASK), verbose=False)
     torch.cuda.synchronize()
     dt_prune = time.perf_counter() - t0
     seconds = time.perf_counter() - t_start
     kernel_launches = {**chain_overlap.launch_counts(), **transfer_step.launch_counts()}
     t0 = time.perf_counter()
     pruned_h, attempts_h = symmetry_breaking(host, target_h, shuffle_seed=0,
-                                             warm_params=planted(host), verbose=False)
+                                             warm_params=_planted(host, BRICK_MASK),
+                                             verbose=False)
     dt_prune_h = time.perf_counter() - t0
     check(sorted(pruned) == BRICK_MASK and (pruned, attempts) == (pruned_h, attempts_h),
           f"brick: the prune pass pruned {pruned} in {attempts} attempts on the card, "
@@ -971,7 +1005,6 @@ def phase_brick_network(smi: str, dense_fitted) -> dict:
     from tneq_tpu_torch.model.qctn import params_from_numpy, params_to_numpy
     from tneq_tpu_torch.ops import chain_overlap, row_scan, transfer_step
     from tneq_tpu_torch.ops.contract import make_core_only_fn
-    from tneq_tpu_torch.train.fit import identity_cores, masked_cores
     from tneq_tpu_torch.train.losses import fidelity
     from tneq_tpu_torch.train.network_fit import _normalize, _overlap_fn, network_log_fidelity
     from tneq_tpu_torch.utils.device import matmul_precision
@@ -1063,20 +1096,15 @@ def phase_brick_network(smi: str, dense_fitted) -> dict:
 
     # one pass of the prune loop warm-started at the planted network, card
     # then host
-    def planted(e):
-        idents = {k: torch.as_tensor(v).to(device=e.device, dtype=cfg.dtype)
-                  for k, v in identity_cores(e.graph, cfg.dtype).items()}
-        return masked_cores(e.init_params(0), e.mask_vector(BRICK_MASK), idents,
-                            e.graph.core_names, cfg.dtype)
-
     t0 = time.perf_counter()
-    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0, warm_params=planted(exp),
-                                         verbose=False)
+    pruned, attempts = symmetry_breaking(exp, target, shuffle_seed=0,
+                                         warm_params=_planted(exp, BRICK_MASK), verbose=False)
     torch.cuda.synchronize()
     dt_prune = time.perf_counter() - t0
     t0 = time.perf_counter()
     pruned_h, attempts_h = symmetry_breaking(host, target_h, shuffle_seed=0,
-                                             warm_params=planted(host), verbose=False)
+                                             warm_params=_planted(host, BRICK_MASK),
+                                             verbose=False)
     dt_prune_h = time.perf_counter() - t0
     check(sorted(pruned) == BRICK_MASK and (pruned, attempts) == (pruned_h, attempts_h),
           f"brick_network: the prune pass pruned {pruned} in {attempts} attempts on the "
@@ -1200,11 +1228,358 @@ def phase_brick_network(smi: str, dense_fitted) -> dict:
     return rec
 
 
-def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict) -> dict:
+def _lane_sweeps(lanes: int, seed: int, dev):
+    """u0, M, w of ``lanes`` independent bench-shape sweeps, stacked on a
+    leading lane axis."""
+    import torch
+
+    parts = [_random_sweep(16, SWEEP_N, seed + i, dev) for i in range(lanes)]
+    return tuple(torch.stack([p[j] for p in parts]).contiguous() for j in range(3))
+
+
+def _planted(e, planted_mask):
+    """The planted network of experiment ``e``: the cores its target draws
+    (``init_params(0)``) with identities in the places of ``planted_mask``."""
+    import torch
+
+    from tneq_tpu_torch.train.fit import identity_cores, masked_cores
+
+    dtype = e.cfg.dtype
+    idents = {k: torch.as_tensor(v).to(device=e.device, dtype=dtype)
+              for k, v in identity_cores(e.graph, dtype).items()}
+    return masked_cores(e.init_params(0), e.mask_vector(planted_mask), idents,
+                        e.graph.core_names, dtype)
+
+
+def _lane_step(fit, params, masks, shared):
+    """One vmapped step of ``fit``'s lanes (``FitDrivers.batched_chunk``),
+    all lanes at ``params``, and its wall time in ms (median of 3, with the
+    exit test's read of the lane metrics): what a chunk repeats k times."""
+    import torch
+    from torch.utils._pytree import tree_map
+
+    d = fit.drivers
+    opt = d.optimizer.init(params)
+    run = d.batched_chunk(1, opt, len(shared))
+    b = int(masks.shape[0])
+    lanes = (lambda x: x.expand((b,) + tuple(x.shape)).contiguous()  # noqa: E731
+             if isinstance(x, torch.Tensor) else x)
+    box = {"p": {k: lanes(v) for k, v in params.items()}, "o": tree_map(lanes, opt)}
+
+    def step():
+        box["p"], box["o"], m = run(box["p"], box["o"], masks, *shared)
+        m.cpu()
+
+    step()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return step, sorted(times)[1]
+
+
+def phase_lane_kernels(smi: str) -> dict:
+    """Phase 10 (a), run right after phase 2 (torch.profiler's device times
+    come back empty now and then late in the script): B1/B2 with a lane
+    axis at the bench shape, 1 and 8 lanes, against the plain version with
+    the lane axis and one launch per lane; one launch per sweep."""
+    import torch
+
+    from tneq_tpu_torch.ops import chain_overlap as co
+
+    dev = torch.device("cuda", 0)
+    t_a = time.perf_counter()
+    cases = []
+    for lanes in LANE_COUNTS:
+        u0, M, w = _lane_sweeps(lanes, 100, dev)
+        r0 = (1.7 * w).contiguous()
+        co.reset_launch_counts()
+        kf = co._sweep_fwd_cuda(u0, M, w)
+        kb = co._sweep_bwd_cuda(r0, M, kf[0], kf[1])
+        torch.cuda.synchronize()
+        counts = co.launch_counts()
+        check(counts == {"chain_sweep_fwd": 1, "chain_sweep_bwd": 1},
+              f"batched (a): {lanes} lanes took {counts} launches, expected one per sweep")
+        pf = co._sweep_fwd_plain(u0, M, w)
+        pb = co._sweep_bwd_plain(r0, M, kf[0], kf[1])
+        names = ("ustack", "scales", "f", "logsum", "ulast", "dM", "du0")
+        err = {nm: rel_err(k, p) for nm, k, p in zip(names, kf + kb, pf + pb)}
+        err["f"] = rel_err(kf[2], pf[2], scale=(pf[4] * w).abs().sum(-1).max())
+        single = 0.0
+        for i in range(lanes):  # the same sweeps, one launch per lane
+            one = co._sweep_fwd_cuda(u0[i], M[i], w[i])
+            oneb = co._sweep_bwd_cuda(r0[i], M[i], one[0], one[1])
+            single = max(single, *(rel_err(k[i], o) for k, o in zip(kf + kb, one + oneb)))
+        torch.cuda.synchronize()
+        err["vs_single_lane_launches"] = single
+        bad = {k: v for k, v in err.items() if not v <= TOL_KERNEL}
+        check(not bad, f"batched (a): {lanes} lanes beyond {TOL_KERNEL}: {bad}")
+        calls = {
+            "chain_sweep_fwd": (lambda: co._sweep_fwd_cuda(u0, M, w),
+                                lambda: co._sweep_fwd_plain(u0, M, w),
+                                lambda: [co._sweep_fwd_cuda(u0[i], M[i], w[i])
+                                         for i in range(lanes)]),
+            "chain_sweep_bwd": (lambda: co._sweep_bwd_cuda(r0, M, kf[0], kf[1]),
+                                lambda: co._sweep_bwd_plain(r0, M, kf[0], kf[1]),
+                                lambda: [co._sweep_bwd_cuda(r0[i], M[i], kf[0][i], kf[1][i])
+                                         for i in range(lanes)]),
+        }
+        times, plans = {}, {}
+        bounds = sweep_bounds(SWEEP_N, 256, lanes)
+        for name, (kernel, plain, singles) in calls.items():
+            dms = device_ms(kernel)
+            times[name] = {
+                "ms": cuda_ms(kernel),
+                "device_ms": dms,
+                "device_ms_per_lane": dms / lanes if dms else None,
+                "plain_ms": cuda_ms(plain),
+                "single_lane_launches_device_ms": device_ms(singles),
+                **bounds[name],
+            }
+            cluster, strip, stages, tile_rows, smem = co._plan_for(
+                M, backward=name == "chain_sweep_bwd")
+            plans[name] = {"cluster": cluster, "strip": strip, "ring_stages": stages,
+                           "tile_rows": tile_rows, "smem_bytes": smem}
+        abs_err = {"chain_sweep_fwd": max(float((k - p).abs().max()) for k, p in zip(kf, pf)),
+                   "chain_sweep_bwd": max(float((k - p).abs().max()) for k, p in zip(kb, pb))}
+        cases.append({"lanes": lanes, "n": SWEEP_N, "S": 256, "launches": counts,
+                      "rel_err": err, "max_abs_err": abs_err, "times": times,
+                      "plans": plans})
+    rec = {"phase": "batched", "part": "a_lane_kernels", "tolerance": TOL_KERNEL,
+           "cases": cases, "seconds": time.perf_counter() - t_a, "card": smi}
+    emit(rec)
+    return rec
+
+
+
+def phase_batched(smi: str, experiment, dense_fitted) -> list:
+    """Phase 10 (b)-(f): the batched prune (``symmetry_breaking_batched``,
+    ``fit.batched``: lockstep lanes under ``torch.func.vmap``); one JSON
+    line per part."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.apps.symmetry_breaking import (
+        SymmetryBreakingConfig, make_experiment, symmetry_breaking_batched, target_tensor_init,
+    )
+    from tneq_tpu_torch.model.qctn import params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.ops import chain_overlap as co
+    from tneq_tpu_torch.ops import transfer_step
+    from tneq_tpu_torch.ops.complex_pair import pair_tree, to_pair
+
+    recs = []
+
+    def done(part: str, rec: dict) -> None:
+        rec = {"phase": "batched", "part": part, **rec, "card": smi}
+        emit(rec)
+        recs.append(rec)
+
+    def lanes_at(params, lanes):
+        """Each lane's params, one dict per lane."""
+        return [{k: v[i] for k, v in params.items()} for i in range(lanes)]
+
+    # (b) the batched prune of the dense 8 x 5 wall: the target planted with
+    # one core pruned, the lanes warm at its planted network; the first
+    # round accepts that core, the second finds no viable candidate
+    def brick_prune(mode: str, k: int):
+        cfg = SymmetryBreakingConfig(device="cuda", fidelity_mode=mode, prune_steps=k,
+                                     lane_chunk=LANE_CHUNK)
+        exp = make_experiment(cfg)
+        host = make_experiment(replace(cfg, device="cpu"))
+        target = target_tensor_init(exp, BATCHED_PLANTED, 0)
+        target_h = target_tensor_init(host, BATCHED_PLANTED, 0)
+        warm, warm_h = _planted(exp, BATCHED_PLANTED), _planted(host, BATCHED_PLANTED)
+        co.reset_launch_counts()
+        transfer_step.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        pruned, count = symmetry_breaking_batched(exp, target, warm_params=warm, verbose=False)
+        torch.cuda.synchronize()
+        dt_prune = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        kernel_launches = {**co.launch_counts(), **transfer_step.launch_counts()}
+        # the first piece of lanes again, its lane params kept: each lane's
+        # metric at them, card against host
+        masks = torch.stack([exp.mask_vector([c]) for c in range(LANE_CHUNK)])
+        args = target if mode == "network" else (target,)
+        t0 = time.perf_counter()
+        res = exp.prune_fit.batched(warm, masks, *args, chunk_steps=k)
+        torch.cuda.synchronize()
+        dt_piece = time.perf_counter() - t0
+        dc, dh = exp.prune_fit.drivers, host.prune_fit.drivers
+        shared_c = exp.prune_fit.prepare(*target) if mode == "network" else (target,)
+        shared_h = host.prune_fit.prepare(*target_h) if mode == "network" else (target_h,)
+        card_m, host_m = [], []
+        for i, p in enumerate(lanes_at(res.params, LANE_CHUNK)):
+            card_m.append(float(dc.step(p, dc.optimizer.init(p), masks[i], *shared_c)[2]))
+            p_h = params_from_numpy(params_to_numpy(p), "cpu")
+            host_m.append(float(dh.step(p_h, dh.optimizer.init(p_h), masks[i].cpu(),
+                                        *shared_h)[2]))
+        diff = [abs(c - h) / max(1.0, abs(h)) for c, h in zip(card_m, host_m)]
+        check(max(diff) <= TOL_LANE,
+              f"batched ({mode}): lane metrics card {card_m} vs host {host_m} at the card's "
+              f"lane params")
+        # launches and idle share of one vmapped step of the piece's lanes
+        step, step_ms = _lane_step(exp.prune_fit, warm, masks, shared_c)
+        prof = _profile_steps(step, step_ms, steps=1)
+        rec = {
+            "program": f"symmetry_breaking_batched, brick wall 8 x 5, rank 2, complex64, "
+                       f"sgdg prune lr 1e-2, {mode} fidelity, lane_chunk {LANE_CHUNK}, "
+                       f"k = {k}",
+            "reduced": {"prune_steps": k, "planted": BATCHED_PLANTED},
+            "warm_start": "the planted network",
+            "pruned": pruned, "attempts": count, "prune_seconds": dt_prune,
+            "max_memory_allocated_bytes": peak,
+            "port_kernel_launches": kernel_launches,
+            "piece": {"lanes": LANE_CHUNK, "steps": res.steps, "seconds": dt_piece,
+                      "lane_steps_per_s": LANE_CHUNK * res.steps / dt_piece,
+                      "metric_card_at_lane_params": card_m,
+                      "metric_host_at_lane_params": host_m,
+                      "max_diff": max(diff)},
+            "lane_step_ms": step_ms,
+            "profile_of_a_lane_step": prof,
+            "launches_per_chunk_step": prof["kernel_launches_per_step"],
+            "device_idle_share": prof["device_idle_share"],
+        }
+        return rec, exp, host, target, target_h, warm_h
+
+    expected = (BATCHED_PLANTED, 2 * 35 - 1)  # two rounds: 35 candidates, then 34
+    t_b = time.perf_counter()
+    rec_b, exp_b, host_b, _, target_bh, warm_bh = brick_prune("dense", BATCHED_K)
+    t0 = time.perf_counter()
+    pruned_h, count_h = symmetry_breaking_batched(host_b, target_bh, warm_params=warm_bh,
+                                                  verbose=False)
+    rec_b["host_prune_seconds"] = time.perf_counter() - t0
+    rec_b["host_pruned"], rec_b["host_attempts"] = pruned_h, count_h
+    check((rec_b["pruned"], rec_b["attempts"]) == (pruned_h, count_h) == expected,
+          f"batched (b): pruned {rec_b['pruned']} in {rec_b['attempts']} on the card, "
+          f"{pruned_h} in {count_h} on the host; expected {expected}")
+    done("b_dense", {**rec_b, "seconds": time.perf_counter() - t_b})
+
+    # (c) the same in network mode (the host checks the lanes' -log F at the
+    # card's lane params; its own prune would take minutes)
+    t_c = time.perf_counter()
+    rec_c = brick_prune("network", BATCHED_K_NETWORK)[0]
+    check((rec_c["pruned"], rec_c["attempts"]) == expected,
+          f"batched (c): pruned {rec_c['pruned']} in {rec_c['attempts']}, expected {expected}")
+    done("c_network", {**rec_c, "seconds": time.perf_counter() - t_c})
+
+    # (d) the MPS experiment of phase 4 with --batched semantics
+    t_d = time.perf_counter()
+    exp4, target4, fitted4 = experiment
+    co.reset_launch_counts()
+    t0 = time.perf_counter()
+    pruned4, count4 = symmetry_breaking_batched(exp4, target4, warm_params=fitted4,
+                                                verbose=False)
+    torch.cuda.synchronize()
+    dt4 = time.perf_counter() - t0
+    counts4 = co.launch_counts()
+    check(sorted(pruned4) == [3, 7],
+          f"batched (d): the MPS experiment pruned {pruned4}, planted [3, 7]")
+    check(counts4["chain_sweep_fwd"] > 0 and counts4["chain_sweep_bwd"] > 0,
+          f"batched (d): the lanes did not run the sweep kernels: {counts4}")
+    # one chunk at 1 lane and at LANE_CHUNK lanes: the same B1/B2 launches
+    one_chunk = make_experiment(replace(exp4.cfg, prune_steps=BATCHED_K))
+    per_lanes = {}
+    for lanes in (1, LANE_CHUNK):
+        masks = torch.stack([one_chunk.mask_vector([1 + i % 10]) for i in range(lanes)])
+        co.reset_launch_counts()
+        res = one_chunk.prune_fit.batched(fitted4, masks, *target4, chunk_steps=BATCHED_K)
+        torch.cuda.synchronize()
+        per_lanes[lanes] = {k: v / res.steps for k, v in co.launch_counts().items()}
+    check(per_lanes[1] == per_lanes[LANE_CHUNK] and per_lanes[1]["chain_sweep_fwd"] > 0,
+          f"batched (d): B1/B2 launches per chunk step {per_lanes} grow with the lanes")
+    done("d_mps_experiment", {
+        "program": "symmetry_breaking_batched on phase 4's experiment: MPS 12 qubits, bond "
+                   "16, float32, adam (prune lr 5e-2, <= 480 steps), network fidelity, "
+                   f"lane_chunk {exp4.cfg.lane_chunk}, k = {exp4.cfg.fit_sync_every}",
+        "pruned": sorted(pruned4), "attempts": count4, "seconds": dt4,
+        "launches": counts4, "launches_per_chunk_step": per_lanes,
+        "total_seconds": time.perf_counter() - t_d,
+    })
+
+    # (e) pair mode: 20 prune steps from phase 8's validated cores (against
+    # phase 8's target) in complex64 and in stacked-real pairs; then the
+    # CLI, pair and batched
+    t_e = time.perf_counter()
+    target8 = target_tensor_init(exp_b, BRICK_MASK, 0)
+    pair_runs = {}
+    for form in ("complex64", "complex64-pair"):
+        e = exp_b if form == "complex64" else make_experiment(
+            replace(exp_b.cfg, complex_as_real=True))
+        d = e.prune_fit.drivers
+        p = dense_fitted if form == "complex64" else pair_tree(dense_fitted)
+        t = target8 if form == "complex64" else to_pair(target8)
+        o, m = d.optimizer.init(p), e.mask_vector([])
+        vals = []
+        for _ in range(PAIR_STEPS):
+            p, o, v = d.step(p, o, m, t)
+            vals.append(float(v))
+        pair_runs[form] = vals
+    pair_diff = max(abs(a - b) for a, b in zip(*pair_runs.values()))
+    check(pair_diff <= TOL_PAIR,
+          f"batched (e): pair 1 - F vs complex64 on the card, max diff {pair_diff}")
+    cli = _cli_pair(["--n-qubits", "4", "--n-cells", "2", "--restarts", "1",
+                     "--prune-steps", str(BRICK_CLI_PRUNE_STEPS), "--dtype", "complex64-pair",
+                     "--batched"])
+    done("e_pair", {"infidelity_complex64": pair_runs["complex64"],
+                    "infidelity_pair": pair_runs["complex64-pair"], "max_diff": pair_diff,
+                    "tolerance": TOL_PAIR, "cli": cli, "seconds": time.perf_counter() - t_e})
+
+    # (f) the 32 x 5 float32 flagship in network mode: one chunk of lanes
+    t_f = time.perf_counter()
+    cfg32 = SymmetryBreakingConfig(n_qubits=FLAGSHIP_QUBITS, n_cells=FLAGSHIP_CELLS,
+                                   fidelity_mode="network", dtype=torch.float32,
+                                   device="cuda", prune_steps=BATCHED_K)
+    exp32 = make_experiment(cfg32)
+    n32 = exp32.graph.ncores
+    mask32 = sorted(np.random.default_rng(0).choice(n32, size=n32 // 4, replace=False).tolist())
+    gen32 = torch.Generator().manual_seed(0)
+    target32 = target_tensor_init(exp32, mask32, gen32)
+    params32 = exp32.init_params(gen32)
+    masks32 = torch.stack([exp32.mask_vector([c]) for c in range(LANE_CHUNK)])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res32 = exp32.prune_fit.batched(params32, masks32, *target32, chunk_steps=BATCHED_K)
+    torch.cuda.synchronize()
+    dt32 = time.perf_counter() - t0
+    peak32 = torch.cuda.max_memory_allocated()
+    check(tuple(res32.infidelity.shape) == (LANE_CHUNK,)
+          and bool(torch.isfinite(res32.infidelity).all()),
+          f"batched (f): lane 1 - F {res32.infidelity}")
+    step32, step32_ms = _lane_step(exp32.prune_fit, params32, masks32,
+                                   exp32.prune_fit.prepare(*target32))
+    prof32 = _profile_steps(step32, step32_ms, steps=1)
+    done("f_flagship_chunk", {
+        "program": "bench/flagship.py::run_32q on the port (brick wall 32 x 5, float32, "
+                   f"sgdg, network fidelity): one chunk of {BATCHED_K} steps, "
+                   f"{LANE_CHUNK} lanes (one core pruned each)",
+        "steps": res32.steps, "seconds": dt32,
+        "lane_steps_per_s": LANE_CHUNK * res32.steps / dt32,
+        "max_memory_allocated_bytes": peak32,
+        "infidelity": res32.infidelity.tolist(),
+        "lane_step_ms": step32_ms,
+        "profile_of_a_lane_step": prof32,
+        "launches_per_chunk_step": prof32["kernel_launches_per_step"],
+        "seconds_total": time.perf_counter() - t_f,
+    })
+    return recs
+
+
+def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
+                 batched: list) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
+    lane_part = next(r for r in batched if r["part"] == "a_lane_kernels")
+    mps_part = next(r for r in batched if r["part"] == "d_mps_experiment")
+    lane_case = next(c for c in lane_part["cases"] if c["lanes"] == LANE_CHUNK)
     rows = []
     for name in ("chain_sweep_fwd", "chain_sweep_bwd"):
         meta = _KERNELS[name]
+        lt = lane_case["times"][name]
         rows.append({
             "name": name,
             "id": meta["id"],
@@ -1223,6 +1598,17 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict)
             "plain_device_ms": main_case["times"][name]["plain_device_ms"],
             "cluster": main_case["plans"][name]["cluster"],
             "shape": {"n": main_case["n"], "S": main_case["S"]},
+            # the batched prune's launch: LANE_CHUNK sweeps in one
+            "lanes": {
+                "lanes": LANE_CHUNK, "ms": lt["ms"], "device_ms": lt["device_ms"],
+                "device_ms_per_lane": lt["device_ms_per_lane"], "plain_ms": lt["plain_ms"],
+                "single_lane_launches_device_ms": lt["single_lane_launches_device_ms"],
+                "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+                "max_abs_err": lane_case["max_abs_err"][name],
+                "cluster": lane_case["plans"][name]["cluster"],
+                "launches": mps_part["launches"][name],
+                "launches_per_chunk_step": mps_part["launches_per_chunk_step"][LANE_CHUNK][name],
+            },
         })
     for name, run, shape in (("transfer_step", born, BORN_SHAPE),
                              ("transfer_step_complex", cli, CLI_SHAPE)):
@@ -1276,17 +1662,19 @@ def main() -> int:
     try:
         setup = phase_setup()
         kern = phase_kernels()
+        lane_kern = phase_lane_kernels(setup["nvidia_smi"])
         bench = phase_bench(setup["nvidia_smi"])
-        phase_experiment()
+        _, experiment = phase_experiment()
         transfer = phase_transfer_kernels()
         born = phase_born_rule(setup["nvidia_smi"])
         cli = phase_cli(setup["nvidia_smi"])
         _, dense_fitted = phase_brick(setup["nvidia_smi"])
         phase_brick_network(setup["nvidia_smi"], dense_fitted)
+        batched = phase_batched(setup["nvidia_smi"], experiment, dense_fitted)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    emit(kernels_line(kern, bench, transfer, born, cli))
+    emit(kernels_line(kern, bench, transfer, born, cli, [lane_kern] + batched))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -284,3 +284,82 @@ def test_row_sweep_on_the_card_matches_the_host(dev, dtype):
     assert float((vc - vh).abs().max()) <= 1e-5 * max(1.0, float(vh.abs().max()))
     for x, y in zip(gc, gh):
         assert _rel(x, y) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# B1/B2 with a lane axis: the batched prune's lanes as one launch
+# ---------------------------------------------------------------------------
+
+
+def _lane_inputs(lanes, n, S, seed, dev):
+    parts = [_inputs(n, S, seed + i, dev) for i in range(lanes)]
+    return tuple(torch.stack([p[j] for p in parts]).contiguous() for j in range(3))
+
+
+@pytest.mark.parametrize("lanes", [1, 3, 8])
+@pytest.mark.parametrize("n,S", [(10, 256), (29, 256), (4, 1024), (5, 9)])
+def test_lane_batched_kernels_match_plain_versions(dev, lanes, n, S):
+    """One launch of B1 and one of B2 for all lanes, against the plain
+    version with the lane axis and against one launch per lane."""
+    u0, M, w = _lane_inputs(lanes, n, S, 7 * S + n, dev)
+    _poison((lanes, n, S), dev)
+    co.reset_launch_counts()
+    kf = co._sweep_fwd_cuda(u0, M, w)
+    kb = co._sweep_bwd_cuda(w, M, kf[0], kf[1])
+    assert co.launch_counts() == {"chain_sweep_fwd": 1, "chain_sweep_bwd": 1}
+    pf = co._sweep_fwd_plain(u0, M, w)
+    pb = co._sweep_bwd_plain(w, M, kf[0], kf[1])
+    for name, k, p in zip(("ustack", "scales", "f", "logsum", "ulast", "dM", "du0"),
+                          kf + kb, pf + pb):
+        assert k.shape == p.shape, name
+        assert _rel(k, p) <= TOL or float((k - p).abs().max()) <= 1e-6, name
+    # each lane against a launch of its own (the same arithmetic; a plan of
+    # another cluster size cuts a site into other tiles, so only to f32
+    # rounding)
+    for i in range(lanes):
+        one = co._sweep_fwd_cuda(u0[i], M[i], w[i])
+        for name, k, o in zip(("ustack", "scales", "f", "logsum", "ulast"), kf, one):
+            assert _rel(k[i], o) <= TOL or float((k[i] - o).abs().max()) <= 1e-6, name
+    torch.cuda.synchronize()
+
+
+def test_vmap_of_the_chain_overlap_is_one_launch_per_sweep(dev):
+    """torch.func.vmap(grad) of the chain log-overlap over 8 lanes launches
+    B1 once and B2 once, and matches each lane alone."""
+    from torch.func import grad, vmap
+
+    u0, M, w = _lane_inputs(8, 10, 256, 3, dev)
+    fn = lambda u, m, x: co.mv_chain_log_overlap_cuda(u, m, x)
+    co.reset_launch_counts()
+    gu, gm = vmap(grad(fn, argnums=(0, 1)))(u0, M, w)
+    assert co.launch_counts() == {"chain_sweep_fwd": 1, "chain_sweep_bwd": 1}
+    for i in (0, 7):
+        a, b = u0[i].clone().requires_grad_(True), M[i].clone().requires_grad_(True)
+        fn(a, b, w[i]).backward()
+        np.testing.assert_allclose(gu[i].cpu().numpy(), a.grad.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-6)
+        np.testing.assert_allclose(gm[i].cpu().numpy(), b.grad.cpu().numpy(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def test_lane_axis_counts_in_the_dimension_check(dev):
+    """CUDA's copies take CUDA_MAX_DIMS dimensions and no more; a pairwise
+    step of that many runs, and under vmap its lane axis makes it one too
+    many, so it raises before reaching CUDA."""
+    from torch.func import vmap
+
+    from tneq_tpu_torch.ops import pairwise
+
+    n = pairwise.CUDA_MAX_DIMS
+    x = torch.ones((2,) * n, device=dev)
+    assert x.permute(*reversed(range(n))).contiguous().shape == x.shape
+    with pytest.raises(RuntimeError, match="too many"):
+        x.unsqueeze(0).expand(2, *x.shape).permute(*reversed(range(n + 1))).contiguous()
+    del x
+    letters = "abcdefghijklmnopqrstuvwxyz"[:n]
+    eq = f"{letters},{letters[-1]}->{letters[:-1]}"
+    a = torch.ones((1,) * (n - 1) + (2,), device=dev)
+    b = torch.ones(2, device=dev)
+    assert float(pairwise.einsum(eq, a, b).sum()) == 2.0
+    with pytest.raises(ValueError, match="lane axis"):
+        vmap(lambda x: pairwise.einsum(eq, x, b))(a.unsqueeze(0).expand(3, *a.shape))

@@ -111,15 +111,23 @@ def test_a_masked_fit_substitutes_identities_like_jax():
 
 
 def test_unported_options_raise():
+    """Every option of the JAX fit is ported now: the stacked-real pairs
+    (item 7c) build and ``.batched`` (items 5/6) runs lanes (both held
+    against JAX in test_torch_complex_pair.py and test_torch_batched.py);
+    what raises is an invalid scope or loss kind."""
     gt = parse_graph(incidence_to_graph(build_brick_wall_incidence(4, 1, 2)))
     opt = t_sgdg(0.1)
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        make_masked_fidelity_fit(gt, opt, 5, complex_as_real=True, device="cpu")
+    assert make_masked_fidelity_fit(gt, opt, 5, complex_as_real=True, device="cpu").scope == "fit"
     with pytest.raises(ValueError, match="jit_scope"):
         make_masked_fidelity_fit(gt, opt, 5, jit_scope="bogus", device="cpu")
     with pytest.raises(ValueError, match="loss_kind"):
         make_masked_fidelity_fit(gt, opt, 5, loss_kind="bogus", device="cpu")
     fit = make_masked_fidelity_fit(gt, opt, 5, device="cpu")
     assert fit.scope == "fit"
-    with pytest.raises(NotImplementedError, match="items 5/6"):
-        fit.batched(None, None, None)
+    gj = j_parse(j_inc(j_brick(4, 1, 2)))
+    target = np.array(j_contract(gj, {k: jnp.asarray(v) for k, v in
+                                      params_to_numpy(init_params(gt, 1, torch.complex64,
+                                                                  device="cpu")).items()}))
+    res = fit.batched(init_params(gt, 2, torch.complex64, device="cpu"),
+                      torch.ones(2, gt.ncores), torch.as_tensor(target), chunk_steps=2)
+    assert res.steps == 6 and res.infidelity.shape == (2,)

@@ -34,6 +34,8 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 assert "tneq_tpu_torch.ops.row_scan" in names and "tneq_tpu_torch.ops.pairwise" in names
+assert "tneq_tpu_torch.ops.complex_pair" in names
+assert "tneq_tpu_torch.optim.pair_stiefel" in names
 """
 
 

@@ -107,8 +107,9 @@ def test_direct_scan_gradcheck_complex128():
 
 
 def test_non_chain_graphs_raise():
-    """Non-chain graphs run now (held against JAX below); what still raises
-    is the multi-device mesh (item 11) and the stacked-real pairs (7c)."""
+    """Non-chain graphs run now (held against JAX below), and so do the
+    stacked-real pairs (7c, test_torch_complex_pair.py); what still raises
+    is the multi-device mesh (item 11)."""
     from tneq_tpu_torch.graph import wall_graph
 
     g = t_parse(wall_graph(4, 2, 2))
@@ -118,8 +119,7 @@ def test_non_chain_graphs_raise():
     for gr in (g, t_parse(mps_graph(4, 2))):
         with pytest.raises(NotImplementedError, match="item 11"):
             t_make_fit(gr, t_sgdg(0.1), 5, mesh=object(), device="cpu")
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            t_make_fit(gr, t_sgdg(0.1), 5, complex_as_real=True, device="cpu")
+        assert t_make_fit(gr, t_sgdg(0.1), 5, complex_as_real=True, device="cpu").scope == "fit"
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,33 @@ def test_plan_at_the_main_shapes(backward):
     assert co.sweep_plan(1, 1, backward)[:4] == (1, 1, 1, 1)
 
 
+@pytest.mark.parametrize("lanes", [1, 3, 8, 16, 35])
+@pytest.mark.parametrize("S", SIZES)
+def test_plan_with_lanes_fits_the_card(S, lanes):
+    """lanes x cluster CTAs stay within the card's 132 SMs wherever the
+    strip width allows: the cluster halves until they fit or half of it
+    would leave a strip wider than 128."""
+    for backward in (False, True):
+        plan = co.sweep_plan(29, S, backward, co.MAX_CLUSTER, lanes)
+        cluster, strip = plan[:2]
+        assert strip <= co.MAX_STRIP and cluster * strip >= S
+        assert lanes * cluster <= co.SMS or cluster // 2 < _ceil(S, co.MAX_STRIP)
+        if lanes == 1:
+            assert plan == co.sweep_plan(29, S, backward)
+
+
+def test_plan_with_lanes_at_the_main_shapes():
+    # the batched prune's 8 lanes of the 12-qubit chain: 8 clusters of 16
+    assert co.sweep_plan(10, 256, False, 16, 8)[:2] == (16, 16)
+    # 16 lanes halve the cluster to 8 (128 SMs), 35 lanes to 2 (70 SMs)
+    assert co.sweep_plan(10, 256, False, 16, 16)[:2] == (8, 32)
+    assert co.sweep_plan(10, 256, False, 16, 35)[:2] == (2, 128)
+    # S = 1024 never goes below 8 CTAs of 128 columns
+    assert co.sweep_plan(10, 1024, True, 16, 35)[:2] == (8, 128)
+    with pytest.raises(ValueError, match="lanes"):
+        co.sweep_plan(3, 16, lanes=0)
+
+
 @pytest.mark.parametrize("S", [9, 130, 1000])
 def test_plan_ragged_strips(S):
     cluster, strip, *_ = co.sweep_plan(29, S)
@@ -89,6 +116,7 @@ def test_plan_refuses_what_the_kernels_do_not_take():
     ("kThreads", co.THREADS), ("kMaxCluster", co.MAX_CLUSTER),
     ("kPortableCluster", co.PORTABLE_CLUSTER), ("kMaxStages", co.MAX_STAGES),
     ("kSmemMax", co.SMEM_MAX), ("kMaxS", co.MAX_S), ("kBarFloats", co.BAR_FLOATS),
+    ("kMaxStrip", co.MAX_STRIP),
 ])
 def test_plan_constants_match_the_source(name, value):
     m = re.search(rf"constexpr \w+ {name} = (\d+);", SOURCE)

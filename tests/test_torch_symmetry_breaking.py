@@ -107,8 +107,7 @@ def test_target_tensor_init_network_mode():
     ({"topology": "mps", "fidelity_mode": "dense"}, ValueError),
     ({"topology": "mps", "fidelity_mode": "network", "complex_as_real": True}, ValueError),
     ({"topology": "ring", "fidelity_mode": "network"}, ValueError),
-    ({"topology": "brick", "fidelity_mode": "dense", "complex_as_real": True},
-     NotImplementedError),
+    ({"topology": "brick", "fidelity_mode": "dense", "complex_as_real": True}, None),
     ({"topology": "brick", "fidelity_mode": "bogus"}, ValueError),
 ])
 def test_unported_and_invalid_configs_raise(kw, exc):
@@ -121,13 +120,16 @@ def test_unported_and_invalid_configs_raise(kw, exc):
 
 
 def test_cli_waits_for_the_brick_wall_slice():
-    """The brick wall runs now, in both fidelity modes; what still waits
-    names its ROADMAP item."""
+    """The brick wall runs now, in both fidelity modes, batched and in
+    pair form; only --slice-devices still waits, naming its ROADMAP item."""
     cpu = ["--device", "cpu", "--n-qubits", "4", "--n-cells", "2"]
-    for extra, item in ((["--batched"], "items 5/6"), (["--dtype", "complex64-pair"], "item 7c"),
-                        (["--fidelity-mode", "network", "--slice-devices", "2"], "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
-            ts.main(cpu + extra)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ts.main(cpu + ["--fidelity-mode", "network", "--slice-devices", "2"])
+    # --batched in pair form: a 20-step prune scores all 6 candidates in one
+    # round of lanes (pieces of 4, the second padded) and prunes none
+    res = ts.main(cpu + ["--restarts", "1", "--prune-steps", "20", "--dtype", "complex64-pair",
+                         "--batched", "--lane-chunk", "4"])
+    assert res["n_cores"] == 6 and res["pruned"] == [] and res["attempts"] == 6
     # network mode: its first target stalls near F = 0.45 and is drawn anew
     res = ts.main(cpu + ["--fidelity-mode", "network", "--restarts", "1", "--prune-steps", "5",
                          "--validate-steps", "100"])

@@ -19,13 +19,18 @@ code path.  The dense fit contracts the network as pairwise
 ``torch.einsum`` steps along the native path (``ops/contract.py``); in
 network mode the brick wall's overlaps run the row sweep
 (``ops/row_scan.py``) and, on the card, a float32 chain's overlaps the
-sweep kernels (``ops/chain_overlap.py``).  Still to come: stacked-real pairs
-(``complex_as_real``, item 7c), the vmapped ``symmetry_breaking_batched``
-(items 5/6) and bond-sliced multi-device overlaps (item 11).
+sweep kernels (``ops/chain_overlap.py``).  ``complex_as_real`` runs the
+brick wall's complex cores as stacked-real pairs (``ops/complex_pair.py``,
+``optim/pair_stiefel.py``).  :func:`symmetry_breaking_batched` scores every
+remaining candidate of an accept round in lockstep lanes (``fit.batched``,
+``torch.func.vmap``), at most ``lane_chunk`` per call.  Still to come:
+bond-sliced multi-device overlaps (item 11).
 
     python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2
     python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2 \
         --fidelity-mode network
+    python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2 \
+        --dtype complex64-pair --batched
 """
 
 from __future__ import annotations
@@ -43,10 +48,18 @@ import torch
 from ..graph.dsl import CircuitGraph, parse_graph
 from ..graph.generators import build_brick_wall_incidence, incidence_to_graph, mps_graph
 from ..model.qctn import GeneratorLike, init_params
+from ..ops.complex_pair import make_pair_core_only_fn, pair_tree
 from ..ops.contract import make_core_only_fn
 from ..optim.factory import make_optimizer
+from ..optim.pair_stiefel import pair_sgdg
 from ..optim.stiefel import sgdg
-from ..train.fit import identity_cores, make_masked_fidelity_fit, masked_cores, transparent_cores
+from ..train.fit import (
+    identity_cores,
+    make_masked_fidelity_fit,
+    masked_cores,
+    pair_identity_cores,
+    transparent_cores,
+)
 from ..train.network_fit import make_masked_network_fidelity_fit
 from ..utils.device import matmul_precision, resolve_device
 
@@ -57,17 +70,10 @@ __all__ = [
     "target_tensor_init",
     "validate_target_tensor",
     "symmetry_breaking",
+    "symmetry_breaking_batched",
     "main",
 ]
 
-_PAIR = (
-    "stacked-real complex pairs (complex_as_real, --dtype complex64-pair) "
-    "need ops/complex_pair.py (ROADMAP queue A, item 7c)"
-)
-_BATCHED = (
-    "the batched prune (symmetry_breaking_batched, --batched) waits for "
-    "FitDrivers.batched (ROADMAP queue A, items 5/6)"
-)
 _SLICED = (
     "bond-sliced multi-device overlaps (--slice-devices) wait for the "
     "parallel layer (ROADMAP queue A, item 11)"
@@ -78,9 +84,8 @@ _SLICED = (
 class SymmetryBreakingConfig:
     """Fields and defaults as in the JAX config (the reference's 8-qubit,
     5-cell, rank-2 brick wall in complex64 with Stiefel SGD-G, dense
-    fidelity), less ``lane_chunk`` of the batched prune (items 5/6);
-    ``dtype`` is a torch dtype and ``device`` selects the card (default)
-    or the host (``'cpu'``)."""
+    fidelity); ``dtype`` is a torch dtype and ``device`` selects the card
+    (default) or the host (``'cpu'``)."""
 
     n_qubits: int = 8
     n_cells: int = 5
@@ -99,9 +104,13 @@ class SymmetryBreakingConfig:
     # 'network': fidelity from network-network overlaps only
     fidelity_mode: str = "dense"
     dtype: torch.dtype = torch.complex64
+    # complex cores as stacked-real pairs (ops/complex_pair.py), the brick
+    # wall only
     complex_as_real: bool = False
     validate_lr: float = 1.0
     validate_steps: int = 4000
+    # the most lanes of one fit.batched call in symmetry_breaking_batched
+    lane_chunk: int = 8
     fit_jit_scope: str = "fit"
     fit_sync_every: int = 1
     mesh: object = None
@@ -142,8 +151,6 @@ class Experiment:
             identities, unmask = transparent_cores(self.graph, cfg.dtype, pairing="kind")
             self.unmaskable = frozenset(unmask)
         elif cfg.topology == "brick":
-            if cfg.complex_as_real:
-                raise NotImplementedError(_PAIR)
             self.incidence = build_brick_wall_incidence(cfg.n_qubits, cfg.n_cells, cfg.rank)
             self.graph = parse_graph(incidence_to_graph(self.incidence))
         else:
@@ -157,7 +164,9 @@ class Experiment:
             make_fit = partial(make_masked_fidelity_fit, **common)
         else:
             raise ValueError(f"unknown fidelity_mode {cfg.fidelity_mode!r}")
-        if cfg.optimizer != "sgdg":
+        if cfg.complex_as_real:
+            make_opt = pair_sgdg
+        elif cfg.optimizer != "sgdg":
             def make_opt(lr, momentum=0.9, stiefel=True):
                 return make_optimizer(cfg.optimizer, lr=lr, momentum=momentum)
         else:
@@ -168,6 +177,7 @@ class Experiment:
             max_steps=cfg.validate_steps,
             tol=cfg.tol,
             dtype=cfg.dtype,
+            complex_as_real=cfg.complex_as_real,
         )
         self.prune_fit = make_fit(
             self.graph,
@@ -175,10 +185,14 @@ class Experiment:
             max_steps=cfg.prune_steps,
             tol=cfg.tol,
             dtype=cfg.dtype,
+            complex_as_real=cfg.complex_as_real,
         )
 
     def init_params(self, generator: GeneratorLike):
-        """Fresh orthogonal cores on the experiment's device."""
+        """Fresh orthogonal cores on the experiment's device; in pair mode
+        complex64 cores converted to stacked-real pairs."""
+        if self.cfg.complex_as_real:
+            return pair_tree(init_params(self.graph, generator, torch.complex64, self.device))
         return init_params(self.graph, generator, self.cfg.dtype, self.device)
 
     def run_fit(self, fit, params, mask, target):
@@ -224,12 +238,16 @@ def target_tensor_init(exp: Experiment, target_mask_list: Sequence[int],
     mask = exp.mask_vector(target_mask_list)
     if exp.cfg.fidelity_mode == "network":
         return params, mask
-    dtype = exp.cfg.dtype
-    idents = {k: torch.as_tensor(v).to(device=exp.device, dtype=dtype)
-              for k, v in identity_cores(exp.graph, dtype).items()}
-    eff = masked_cores(params, mask, idents, exp.graph.core_names, dtype)
+    if exp.cfg.complex_as_real:
+        cast, idents, core_fn = (torch.float32, pair_identity_cores(exp.graph),
+                                 make_pair_core_only_fn(exp.graph))
+    else:
+        cast, idents, core_fn = (exp.cfg.dtype, identity_cores(exp.graph, exp.cfg.dtype),
+                                 make_core_only_fn(exp.graph))
+    idents = {k: torch.as_tensor(v).to(device=exp.device, dtype=cast) for k, v in idents.items()}
+    eff = masked_cores(params, mask, idents, exp.graph.core_names, cast)
     with torch.no_grad(), matmul_precision("highest"):
-        return make_core_only_fn(exp.graph)(eff)
+        return core_fn(eff)
 
 
 def validate_target_tensor(exp: Experiment, target, generator: GeneratorLike,
@@ -309,6 +327,79 @@ def symmetry_breaking(
     return pruned, prune_count
 
 
+def symmetry_breaking_batched(
+    exp: Experiment,
+    target,
+    warm_params,
+    verbose: bool = True,
+) -> Tuple[List[int], int]:
+    """Batched pruning: score every remaining candidate of a round in one
+    lockstep fit (``prune_fit.batched``), then accept the viable candidate
+    with the smallest 1 − F and start the next round from its lane's
+    params.  Returns ``(pruned_list, prune_count)``.
+
+    The candidates (those that ``row_would_empty`` does not forbid) run in
+    pieces of at most ``lane_chunk`` lanes, the last piece padded by
+    repeating its last mask; each lane starts from ``warm_params``.  A
+    piece runs ``k = fit_sync_every`` steps per exit test where that is
+    above 1, else 16, clamped to ``prune_steps``.  The accepted set matches
+    the sequential greedy loop up to its order of trying candidates.
+    Rounds continue until no candidate is viable (``max_outer_iterations``
+    bounds the sequential loop's passes only, as in JAX).
+    """
+    cfg = exp.cfg
+    batched_fit = exp.prune_fit.batched
+    chunk = max(1, int(cfg.lane_chunk))
+    k = int(cfg.fit_sync_every) if int(cfg.fit_sync_every) > 1 else 16
+    k = max(1, min(k, int(cfg.prune_steps)))
+    pruned: List[int] = []
+    prune_count = 0
+    current = warm_params
+
+    def run_chunked(masks_np):
+        infids, params_chunks = [], []
+        for lo in range(0, masks_np.shape[0], chunk):
+            part = masks_np[lo: lo + chunk]
+            pad = chunk - part.shape[0]
+            if pad:
+                part = np.concatenate([part, np.repeat(part[-1:], pad, 0)])
+            masks = torch.as_tensor(part, device=exp.device)
+            if cfg.fidelity_mode == "network":
+                t_params, t_mask = target
+                res = batched_fit(current, masks, t_params, t_mask, chunk_steps=k)
+            else:
+                res = batched_fit(current, masks, target, chunk_steps=k)
+            take = part.shape[0] - pad
+            infids.append(res.infidelity[:take].detach().cpu().numpy())
+            params_chunks.append({n: v[:take] for n, v in res.params.items()})
+        all_params = {n: torch.cat([p[n] for p in params_chunks]) for n in params_chunks[0]}
+        return np.concatenate(infids), all_params
+
+    while len(pruned) < exp.graph.ncores:
+        candidates = [c for c in exp.candidate_indices()
+                      if c not in pruned and not exp.row_would_empty(pruned + [c])]
+        if not candidates:
+            break
+        masks_np = np.stack([exp.mask_vector(pruned + [c]).cpu().numpy() for c in candidates])
+        prune_count += len(candidates)
+        infids, res_params = run_chunked(masks_np)
+        ok = infids < cfg.tol
+        if not ok.any():
+            if verbose:
+                print(f"  no prunable core among {len(candidates)} "
+                      f"(best 1-F={float(infids.min()):.3e})", flush=True)
+            break
+        best = int(np.argmin(np.where(ok, infids, np.inf)))
+        idx = candidates[best]
+        pruned = pruned + [idx]
+        current = {n: v[best] for n, v in res_params.items()}
+        if verbose:
+            print(f"  pruned core {idx} (now {len(pruned)} pruned, "
+                  f"1-F={float(infids[best]):.3e}; "
+                  f"{int(ok.sum())}/{len(candidates)} candidates viable)", flush=True)
+    return pruned, prune_count
+
+
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """CLI driver of the brick-wall experiment: generate and validate a
     target, then run repeated symmetry-breaking restarts keeping the best
@@ -325,10 +416,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--target-mask", type=int, nargs="*", default=None)
     p.add_argument("--save", type=str, default=None, help="save best run JSON")
     p.add_argument("--batched", action="store_true",
-                   help="score all pruning candidates per round in one "
-                        "vmapped fit (not ported yet: items 5/6)")
+                   help="score all pruning candidates per round in lockstep "
+                        "lanes of one vmapped fit (implies warm start)")
     p.add_argument("--lane-chunk", type=int, default=8,
-                   help="max lanes per call in --batched mode (items 5/6)")
+                   help="max lanes per fit call in --batched mode")
     p.add_argument("--cold-start", action="store_true",
                    help="fresh random init per pruning candidate "
                         "(reference behavior; default warm-starts from the "
@@ -341,8 +432,8 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                    choices=["complex64", "float32", "complex64-pair"],
                    default="complex64",
                    help="core dtype; float32 runs the real-orthogonal "
-                        "variant; complex64-pair (stacked-real pairs) is not "
-                        "ported yet (item 7c)")
+                        "variant; complex64-pair runs the complex cores as "
+                        "stacked-real pairs (real tensors only)")
     p.add_argument("--jit-scope", choices=["fit", "step", "chunk"],
                    default="fit",
                    help="'fit': exit tested before every step; 'step': every "
@@ -356,10 +447,6 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     args = p.parse_args(argv)
 
-    if args.batched:
-        raise NotImplementedError(_BATCHED)
-    if args.dtype == "complex64-pair":
-        raise NotImplementedError(_PAIR)
     if args.slice_devices > 1:
         if args.fidelity_mode != "network":
             p.error("--slice-devices requires --fidelity-mode network")
@@ -372,7 +459,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         validate_steps=args.validate_steps,
         prune_steps=args.prune_steps,
         seed=args.seed,
-        dtype=torch.complex64 if args.dtype == "complex64" else torch.float32,
+        dtype=torch.float32 if args.dtype == "float32" else torch.complex64,
+        complex_as_real=args.dtype == "complex64-pair",
+        lane_chunk=args.lane_chunk,
         fit_jit_scope=args.jit_scope,
         fit_sync_every=args.sync_every,
         device=args.device,
@@ -412,10 +501,13 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     total_attempts = 0
     for restart in range(args.restarts):
         print(f"=== restart {restart} ===")
-        pruned, count = symmetry_breaking(
-            exp, target, cfg.seed + restart,
-            warm_params=None if args.cold_start else fitted,
-        )
+        if args.batched:
+            pruned, count = symmetry_breaking_batched(exp, target, warm_params=fitted)
+        else:
+            pruned, count = symmetry_breaking(
+                exp, target, cfg.seed + restart,
+                warm_params=None if args.cold_start else fitted,
+            )
         total_attempts += count
         if len(pruned) > len(best_pruned):
             best_pruned = pruned

@@ -80,6 +80,13 @@
 //       triple-buffered (K = 3).  One launch: no draws round trip.
 //   One cluster barrier after the set-up and one before exit keep every
 //   CTA resident while a store may target it.
+//   Lanes.  A launch runs `lanes` independent sweeps of one shape (the
+//       lanes of the batched prune, torch.func.vmap in the port): the grid
+//       is cluster x lanes, and the clusters of row blockIdx.y work on lane
+//       blockIdx.y, whose operands sit at lane strides (S for u0, w, ulast,
+//       r0 and du0; n*S*S for M and dM; n*S for ustack; n for scales; 1 for
+//       f and logsum).  sweep_plan halves the cluster while lanes x cluster
+//       CTAs would outgrow the card's 132 SMs.
 // Later work: the three B1 sweeps of a step in one launch, and CUDA graphs
 // around the step.
 //
@@ -271,6 +278,17 @@ sweep_fwd_kernel(const float* __restrict__ u0, const float* __restrict__ M,
   const int warp = tid >> 5;
   const int c0 = c * strip;
   const int wc = min(strip, S - c0);  // >= 1: the plan leaves no CTA empty
+  {  // this cluster's lane
+    const size_t L = blockIdx.y;
+    u0 += L * S;
+    M += L * n * (size_t)S * S;
+    w += L * S;
+    ustack += L * n * (size_t)S;
+    scales += L * n;
+    f_out += L;
+    logsum_out += L;
+    ulast += L * S;
+  }
   // column quads: warp w owns the contiguous quads [w*qpw, w*qpw + nq), so
   // that its 16-byte copies fill whole 32-byte sectors
   const int NQ = (wc + 3) >> 2;
@@ -446,6 +464,15 @@ sweep_bwd_kernel(const float* __restrict__ r0, const float* __restrict__ M,
   const int warp = tid >> 5;
   const int c0 = c * strip;
   const int hc = min(strip, S - c0);  // rows of this CTA, >= 1
+  {  // this cluster's lane
+    const size_t L = blockIdx.y;
+    r0 += L * S;
+    M += L * n * (size_t)S * S;
+    ustack += L * n * (size_t)S;
+    scales += L * n;
+    dM += L * n * (size_t)S * S;
+    du0 += L * S;
+  }
 
   const int stage_floats = (int)bwd_stage_floats(S, tile_rows);
   uint64_t* bars = reinterpret_cast<uint64_t*>(smem);  // [3]: one per draw buffer
@@ -586,9 +613,9 @@ inline bool aligned16(const void* p) {
 }
 
 // The plan's values, checked against what the kernels assume.
-inline bool plan_ok(int n, int S, int cluster, int strip, int stages,
+inline bool plan_ok(int lanes, int n, int S, int cluster, int strip, int stages,
                     int tile_rows, size_t smem, size_t need) {
-  return n >= 1 && S >= 1 && S <= kMaxS && cluster >= 1 &&
+  return lanes >= 1 && lanes <= 65535 && n >= 1 && S >= 1 && S <= kMaxS && cluster >= 1 &&
          cluster <= kMaxCluster && strip >= 1 && strip <= kMaxStrip &&
          (size_t)cluster * strip >= (size_t)S && (cluster - 1) * strip < S &&
          stages >= 1 && stages <= kMaxStages && tile_rows >= 1 &&
@@ -609,8 +636,8 @@ cudaError_t prepare(Kernel kernel, size_t smem, int cluster) {
 struct ClusterLaunch {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
-  ClusterLaunch(int cluster, size_t smem, cudaStream_t st) {
-    cfg.gridDim = dim3(cluster, 1, 1);
+  ClusterLaunch(int cluster, int lanes, size_t smem, cudaStream_t st) {
+    cfg.gridDim = dim3(cluster, lanes, 1);
     cfg.blockDim = dim3(kThreads, 1, 1);
     cfg.dynamicSmemBytes = smem;
     cfg.stream = st;
@@ -626,7 +653,7 @@ struct ClusterLaunch {
 cudaError_t max_active_clusters(const void* kernel, int cluster, int* out) {
   cudaError_t err = prepare(kernel, kSmemMax, cluster);
   if (err != cudaSuccess) return err;
-  ClusterLaunch l(cluster, kSmemMax, nullptr);
+  ClusterLaunch l(cluster, 1, kSmemMax, nullptr);
   return cudaOccupancyMaxActiveClusters(out, kernel, &l.cfg);
 }
 
@@ -634,10 +661,11 @@ cudaError_t max_active_clusters(const void* kernel, int cluster, int* out) {
 
 extern "C" {
 
-// The largest cluster the sweep kernels may use on this card: 16 where
-// clusters of 16 CTAs with the most shared memory a plan asks for can be
-// scheduled (cudaOccupancyMaxActiveClusters), else the portable 8.
-int tneq_chain_sweep_max_cluster(int device, int* out) {
+// The largest cluster the sweep kernels may use on this card for a launch
+// of `lanes` sweeps: 16 where `lanes` clusters of 16 CTAs with the most
+// shared memory a plan asks for can be resident at once
+// (cudaOccupancyMaxActiveClusters), else the portable 8.
+int tneq_chain_sweep_max_cluster(int device, int lanes, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   int fits = 1 << 30;
@@ -651,22 +679,24 @@ int tneq_chain_sweep_max_cluster(int device, int* out) {
     if (err != cudaSuccess) return (int)err;
     fits = m < fits ? m : fits;
   }
-  *out = fits >= 1 ? kMaxCluster : kPortableCluster;
+  *out = fits >= (lanes > 1 ? lanes : 1) ? kMaxCluster : kPortableCluster;
   return 0;
 }
 
-// B1.  Outputs: ustack [n, S], scales [n], f [], logsum [], ulast [S].
+// B1 over `lanes` sweeps.  Inputs u0 [lanes, S], M [lanes, n, S, S],
+// w [lanes, S]; outputs ustack [lanes, n, S], scales [lanes, n],
+// f [lanes], logsum [lanes], ulast [lanes, S].
 int tneq_chain_sweep_fwd(int device, const float* u0, const float* M,
-                         const float* w, int n, int S, int cluster, int strip,
-                         int stages, int tile_rows, size_t smem, float* ustack,
-                         float* scales, float* f, float* logsum, float* ulast,
-                         void* stream) {
-  if (!plan_ok(n, S, cluster, strip, stages, tile_rows, smem,
+                         const float* w, int lanes, int n, int S, int cluster,
+                         int strip, int stages, int tile_rows, size_t smem,
+                         float* ustack, float* scales, float* f, float* logsum,
+                         float* ulast, void* stream) {
+  if (!plan_ok(lanes, n, S, cluster, strip, stages, tile_rows, smem,
                fwd_smem_floats(S, strip, stages, tile_rows)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  ClusterLaunch l(cluster, smem, static_cast<cudaStream_t>(stream));
+  ClusterLaunch l(cluster, lanes, smem, static_cast<cudaStream_t>(stream));
   if (S % 4 == 0 && strip % 4 == 0 && aligned16(M)) {
     auto* k = sweep_fwd_kernel<true>;
     if ((err = prepare(k, smem, cluster)) != cudaSuccess) return (int)err;
@@ -682,19 +712,19 @@ int tneq_chain_sweep_fwd(int device, const float* u0, const float* M,
   return (int)cudaGetLastError();
 }
 
-// B2.  Inputs r0 = df * w [S], M, ustack, scales; outputs dM [n, S, S],
-// du0 [S].
+// B2 over `lanes` sweeps.  Inputs r0 = df * w [lanes, S], M, ustack,
+// scales; outputs dM [lanes, n, S, S], du0 [lanes, S].
 int tneq_chain_sweep_bwd(int device, const float* r0, const float* M,
-                         const float* ustack, const float* scales, int n,
-                         int S, int cluster, int strip, int stages,
+                         const float* ustack, const float* scales, int lanes,
+                         int n, int S, int cluster, int strip, int stages,
                          int tile_rows, size_t smem, float* dM, float* du0,
                          void* stream) {
-  if (!plan_ok(n, S, cluster, strip, stages, tile_rows, smem,
+  if (!plan_ok(lanes, n, S, cluster, strip, stages, tile_rows, smem,
                bwd_smem_floats(S, strip, stages, tile_rows)))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  ClusterLaunch l(cluster, smem, static_cast<cudaStream_t>(stream));
+  ClusterLaunch l(cluster, lanes, smem, static_cast<cudaStream_t>(stream));
   if (S % 4 == 0 && aligned16(M) && aligned16(dM)) {
     auto* k = sweep_bwd_kernel<true>;
     if ((err = prepare(k, smem, cluster)) != cudaSuccess) return (int)err;

@@ -6,6 +6,14 @@ from .chain_overlap import (
     mv_chain_log_overlap_cuda,
 )
 from .compiler import compile_siamese, estimate_cost
+from .complex_pair import (
+    from_pair,
+    make_pair_siamese_fn,
+    pair_abs2,
+    pair_tree,
+    to_pair,
+    unpair_tree,
+)
 from .contract import (
     abs_square,
     contract_cores,
@@ -28,6 +36,12 @@ __all__ = [
     "mv_chain_log_overlap_cuda",
     "compile_siamese",
     "estimate_cost",
+    "from_pair",
+    "make_pair_siamese_fn",
+    "pair_abs2",
+    "pair_tree",
+    "to_pair",
+    "unpair_tree",
     "abs_square",
     "contract_cores",
     "make_core_only_fn",

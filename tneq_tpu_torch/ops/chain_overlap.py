@@ -11,9 +11,11 @@ Counterpart of ``tneq_tpu/ops/chain_overlap.py``.  The chain log-overlap of
    B1 (forward: prefix stack, scales, f = u_n . w, sum log s_i) and B2 (the
    exact VJP with the scales held constant, dM fused), wrapped as the
    ``torch.autograd.Function`` behind :func:`mv_chain_log_overlap_cuda`.
-   Each runs as one thread-block cluster that prefetches M through shared
-   memory and exchanges the carry over distributed shared memory; its
-   launch parameters come from :func:`sweep_plan`.
+   Each sweep runs as one thread-block cluster that prefetches M through
+   shared memory and exchanges the carry over distributed shared memory;
+   its launch parameters come from :func:`sweep_plan`.  Under
+   ``torch.func.vmap`` (the batched prune's lanes) the Functions' vmap
+   rules run every lane's sweep in ONE launch, a cluster per lane.
 
 Each kernel has a plain PyTorch version beside it (:func:`_sweep_fwd_plain`,
 :func:`_sweep_bwd_plain`) with the same outputs.  The dispatch sends a CPU
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -62,6 +65,8 @@ PORTABLE_CLUSTER = 8  # the portable limit, used where 16 is not schedulable
 SMEM_MAX = 232448  # shared memory one CTA may use on an H100
 MAX_STAGES = 16  # ring stages (kMaxStages)
 MIN_STRIP_WORK = 4096  # floats of M a CTA takes per site, at least
+MAX_STRIP = 128  # the widest strip a CTA takes (kMaxStrip)
+SMS = 132  # streaming multiprocessors of an H100 SXM: one CTA each
 BAR_FLOATS = 8  # the mbarriers at the head of shared memory (kBarFloats)
 
 # launches of each kernel, counted by the wrappers where they launch
@@ -110,34 +115,40 @@ def mv_chain_log_overlap(v0, M, w) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # B1 / B2: plain versions, kernel wrappers, dispatch
 # ---------------------------------------------------------------------------
+#
+# Every function below takes a sweep with or without leading lane axes
+# (u0 [..., S], M [..., n, S, S], w [..., S]): the lanes are independent
+# sweeps.  The vmap rules of the autograd Functions put torch.func.vmap's
+# lanes there, so on the card a lane-batched sweep is ONE launch, with one
+# cluster per lane.
 
 
 def _sweep_fwd_plain(u0, M, w):
-    """B1's function in plain PyTorch:
-    ``-> (ustack [n,S], scales [n], f [], logsum [], ulast [S])``."""
-    n = M.shape[0]
-    ustack = torch.empty((n,) + u0.shape, dtype=u0.dtype, device=u0.device)
-    scales = torch.empty((n,), dtype=u0.dtype, device=u0.device)
+    """B1's function in plain PyTorch: ``-> (ustack [..., n, S], scales
+    [..., n], f [...], logsum [...], ulast [..., S])``."""
+    n = M.shape[-3]
+    ustack = torch.empty(M.shape[:-1], dtype=u0.dtype, device=u0.device)
+    scales = torch.empty(M.shape[:-2], dtype=u0.dtype, device=u0.device)
     v = u0
-    logsum = torch.zeros((), dtype=u0.dtype, device=u0.device)
+    logsum = torch.zeros(u0.shape[:-1], dtype=u0.dtype, device=u0.device)
     for i in range(n):
-        ustack[i] = v
-        raw = v @ M[i]
-        s = raw.abs().max() + _TINY
-        v = raw / s
-        scales[i] = s
+        ustack[..., i, :] = v
+        raw = (v.unsqueeze(-2) @ M[..., i, :, :]).squeeze(-2)
+        s = raw.abs().amax(dim=-1) + _TINY
+        v = raw / s.unsqueeze(-1)
+        scales[..., i] = s
         logsum = logsum + torch.log(s)
-    return ustack, scales, torch.sum(v * w), logsum, v
+    return ustack, scales, torch.sum(v * w, dim=-1), logsum, v
 
 
 def _sweep_bwd_plain(r0, M, ustack, scales):
-    """B2's function in plain PyTorch: ``-> (dM [n,S,S], du0 [S])``."""
+    """B2's function in plain PyTorch: ``-> (dM [..., n, S, S], du0 [..., S])``."""
     dM = torch.empty_like(M)
     r = r0
-    for i in reversed(range(M.shape[0])):
-        draw = r / scales[i]
-        dM[i] = torch.outer(ustack[i], draw)
-        r = M[i] @ draw
+    for i in reversed(range(M.shape[-3])):
+        draw = r / scales[..., i, None]
+        dM[..., i, :, :] = ustack[..., i, :, None] * draw.unsqueeze(-2)
+        r = (M[..., i, :, :] @ draw.unsqueeze(-1)).squeeze(-1)
     return dM, r
 
 
@@ -152,13 +163,18 @@ def _check(name: str, t: torch.Tensor, shape: Tuple[int, ...], device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _sweep_shapes(M: torch.Tensor) -> Tuple[int, int]:
-    if M.dim() != 3 or M.shape[1] != M.shape[2]:
-        raise ValueError(f"M must be [n, S, S], got {tuple(M.shape)}")
-    n, S = int(M.shape[0]), int(M.shape[1])
+def _sweep_shapes(M: torch.Tensor) -> Tuple[Tuple[int, ...], int, int, int]:
+    """``(lanes shape, lanes, n, S)`` of ``M [..., n, S, S]``."""
+    if M.dim() < 3 or M.shape[-1] != M.shape[-2]:
+        raise ValueError(f"M must be [..., n, S, S], got {tuple(M.shape)}")
+    lead = tuple(int(d) for d in M.shape[:-3])
+    n, S = int(M.shape[-3]), int(M.shape[-1])
+    lanes = math.prod(lead)
     if n < 1 or not 1 <= S <= MAX_S:
         raise ValueError(f"the sweep kernels take n >= 1 and 1 <= S <= {MAX_S}, got n={n}, S={S}")
-    return n, S
+    if lanes < 1:
+        raise ValueError(f"the sweep kernels take at least one lane, got {lead}")
+    return lead, lanes, n, S
 
 
 def _ceil(a: int, b: int) -> int:
@@ -175,18 +191,23 @@ def tile_pitch(strip: int) -> int:
 
 
 def sweep_plan(n: int, S: int, backward: bool = False,
-               max_cluster: int = MAX_CLUSTER) -> Tuple[int, int, int, int, int]:
+               max_cluster: int = MAX_CLUSTER,
+               lanes: int = 1) -> Tuple[int, int, int, int, int]:
     """``(cluster, strip, ring_stages, tile_rows, smem_bytes)`` of one B1
-    (``backward=False``) or B2 launch, decided by shape and the card's
-    cluster limit alone.
+    (``backward=False``) or B2 launch, decided by shape, lane count and the
+    card's cluster limit alone.
 
-    One cluster of ``cluster`` CTAs walks the n sites; CTA c owns the strip
-    ``[c*strip, (c+1)*strip)`` of every M_i: columns for B1, rows for B2.
-    The strip gives each CTA at least :data:`MIN_STRIP_WORK` floats per site
-    (small S runs as fewer CTAs, S <= 64 as one), is a multiple of 4 where
-    S is (16-byte copies), and no CTA is left empty; the last strip may be
-    ragged.  A CTA's share of a site is cut into as few tiles of
-    ``tile_rows`` rows as leave room for two of them (a row is
+    Each of the ``lanes`` sweeps of a launch is one cluster of ``cluster``
+    CTAs that walks the n sites; CTA c owns the strip ``[c*strip,
+    (c+1)*strip)`` of every M_i: columns for B1, rows for B2.  A CTA holds
+    an SM (its shared memory), so the cluster halves while ``lanes``
+    clusters would outgrow the card's :data:`SMS` SMs, but not below the
+    :data:`MAX_STRIP` width a CTA takes (past that the lanes run in
+    waves).  The strip gives each CTA at least :data:`MIN_STRIP_WORK`
+    floats per site (small S runs as fewer CTAs, S <= 64 as one), is a
+    multiple of 4 where S is (16-byte copies), and no CTA is left empty;
+    the last strip may be ragged.  A CTA's share of a site is cut into as
+    few tiles of ``tile_rows`` rows as leave room for two of them (a row is
     :func:`tile_pitch` floats for B1; ``S`` for B2, whose stage also
     carries the tile's entries of ustack): each tile costs the sweep's
     critical path a fixed latency.  The tiles are prefetched through a ring
@@ -196,6 +217,11 @@ def sweep_plan(n: int, S: int, backward: bool = False,
         raise ValueError(f"the sweep kernels take n >= 1 and 1 <= S <= {MAX_S}, got n={n}, S={S}")
     if not 1 <= max_cluster <= MAX_CLUSTER:
         raise ValueError(f"max_cluster must be in [1, {MAX_CLUSTER}], got {max_cluster}")
+    if lanes < 1:
+        raise ValueError(f"lanes must be >= 1, got {lanes}")
+    least = _ceil(S, MAX_STRIP)
+    while lanes * max_cluster > SMS and max_cluster // 2 >= least:
+        max_cluster //= 2
     strip = min(S, max(_ceil(S, max_cluster), _ceil(MIN_STRIP_WORK, S)))
     if S % 4 == 0:
         strip = 4 * _ceil(strip, 4)
@@ -224,11 +250,14 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 _P, _I, _Z = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 # the C entry points' parameters; each returns a CUDA error code (int)
 _SIGNATURES = {
-    "tneq_chain_sweep_max_cluster": [_I, ctypes.POINTER(_I)],
-    # device, u0, M, w, n, S, plan (5), ustack, scales, f, logsum, ulast, stream
-    "tneq_chain_sweep_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _Z, _P, _P, _P, _P, _P, _P],
-    # device, r0, M, ustack, scales, n, S, plan (5), dM, du0, stream
-    "tneq_chain_sweep_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _Z, _P, _P, _P],
+    # device, lanes, out
+    "tneq_chain_sweep_max_cluster": [_I, _I, ctypes.POINTER(_I)],
+    # device, u0, M, w, lanes, n, S, plan (5), ustack, scales, f, logsum, ulast, stream
+    "tneq_chain_sweep_fwd": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _Z,
+                             _P, _P, _P, _P, _P, _P],
+    # device, r0, M, ustack, scales, lanes, n, S, plan (5), dM, du0, stream
+    "tneq_chain_sweep_bwd": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _Z,
+                             _P, _P, _P],
 }
 
 
@@ -244,37 +273,39 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
-def _max_cluster(device_index: int) -> int:
-    """16 where the card schedules clusters of 16 CTAs at the most shared
-    memory a plan asks for, else the portable 8 (asked once per card)."""
+def _max_cluster(device_index: int, lanes: int = 1) -> int:
+    """16 where the card can hold ``lanes`` clusters of 16 CTAs at once at
+    the most shared memory a plan asks for, else the portable 8 (asked once
+    per card and lane count)."""
     out = ctypes.c_int(0)
-    err = _lib().tneq_chain_sweep_max_cluster(device_index, ctypes.byref(out))
+    err = _lib().tneq_chain_sweep_max_cluster(device_index, lanes, ctypes.byref(out))
     if err != 0:
         raise RuntimeError(f"chain_sweep cluster query failed: CUDA error {err}")
     return out.value
 
 
 def _plan_for(M: torch.Tensor, backward: bool) -> Tuple[int, int, int, int, int]:
-    n, S = _sweep_shapes(M)
-    return sweep_plan(n, S, backward, _max_cluster(M.device.index))
+    _, lanes, n, S = _sweep_shapes(M)
+    return sweep_plan(n, S, backward, _max_cluster(M.device.index, lanes), lanes)
 
 
 def _sweep_fwd_cuda(u0, M, w):
-    """Launch B1 (``csrc/chain_sweep.cu``); same outputs as the plain version."""
-    n, S = _sweep_shapes(M)
+    """Launch B1 (``csrc/chain_sweep.cu``) once for all lanes; same outputs
+    as the plain version."""
+    lead, lanes, n, S = _sweep_shapes(M)
     dev = M.device
-    _check("u0", u0, (S,), dev)
-    _check("M", M, (n, S, S), dev)
-    _check("w", w, (S,), dev)
+    _check("u0", u0, lead + (S,), dev)
+    _check("M", M, lead + (n, S, S), dev)
+    _check("w", w, lead + (S,), dev)
     plan = _plan_for(M, backward=False)
-    ustack = torch.empty((n, S), dtype=torch.float32, device=dev)
-    scales = torch.empty((n,), dtype=torch.float32, device=dev)
-    f = torch.empty((), dtype=torch.float32, device=dev)
-    logsum = torch.empty((), dtype=torch.float32, device=dev)
-    ulast = torch.empty((S,), dtype=torch.float32, device=dev)
+    ustack = torch.empty(lead + (n, S), dtype=torch.float32, device=dev)
+    scales = torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+    f = torch.empty(lead, dtype=torch.float32, device=dev)
+    logsum = torch.empty(lead, dtype=torch.float32, device=dev)
+    ulast = torch.empty(lead + (S,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tneq_chain_sweep_fwd(
-        dev.index, _ptr(u0), _ptr(M), _ptr(w), n, S, *plan, _ptr(ustack),
+        dev.index, _ptr(u0), _ptr(M), _ptr(w), lanes, n, S, *plan, _ptr(ustack),
         _ptr(scales), _ptr(f), _ptr(logsum), _ptr(ulast),
         ctypes.c_void_p(stream),
     )
@@ -285,20 +316,20 @@ def _sweep_fwd_cuda(u0, M, w):
 
 
 def _sweep_bwd_cuda(r0, M, ustack, scales):
-    """Launch B2 (reverse sweep with the outer products fused); same outputs
-    as the plain version."""
-    n, S = _sweep_shapes(M)
+    """Launch B2 (reverse sweep with the outer products fused) once for all
+    lanes; same outputs as the plain version."""
+    lead, lanes, n, S = _sweep_shapes(M)
     dev = M.device
-    _check("r0", r0, (S,), dev)
-    _check("M", M, (n, S, S), dev)
-    _check("ustack", ustack, (n, S), dev)
-    _check("scales", scales, (n,), dev)
+    _check("r0", r0, lead + (S,), dev)
+    _check("M", M, lead + (n, S, S), dev)
+    _check("ustack", ustack, lead + (n, S), dev)
+    _check("scales", scales, lead + (n,), dev)
     plan = _plan_for(M, backward=True)
-    dM = torch.empty((n, S, S), dtype=torch.float32, device=dev)
-    du0 = torch.empty((S,), dtype=torch.float32, device=dev)
+    dM = torch.empty(lead + (n, S, S), dtype=torch.float32, device=dev)
+    du0 = torch.empty(lead + (S,), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().tneq_chain_sweep_bwd(
-        dev.index, _ptr(r0), _ptr(M), _ptr(ustack), _ptr(scales), n, S, *plan,
+        dev.index, _ptr(r0), _ptr(M), _ptr(ustack), _ptr(scales), lanes, n, S, *plan,
         _ptr(dM), _ptr(du0), ctypes.c_void_p(stream),
     )
     if err != 0:
@@ -316,38 +347,83 @@ def _route(M: torch.Tensor, plain, kernel):
     raise ValueError(f"no chain-sweep path for device {M.device}")
 
 
+def _lanes_first(batch_size: int, in_dims, args):
+    """torch.func.vmap's lane axis of each argument moved to the front (an
+    unbatched argument expanded), contiguous for the kernel."""
+    out = []
+    for x, d in zip(args, in_dims):
+        x = x.expand((batch_size,) + tuple(x.shape)) if d is None else x.movedim(d, 0)
+        out.append(x.contiguous())
+    return out
+
+
 class _ChainSweep(torch.autograd.Function):
-    """``(u0, M, w) -> (f, logsum)``: forward = B1, backward = B2 with
-    ``dw = df * u_n``.  The scales are constants (exact for the LOG overlap,
-    as ``sweep_bwd`` treats them), so ``logsum`` is non-differentiable."""
+    """``(u0, M, w) -> (f, logsum, ustack, scales, ulast)``: forward = B1,
+    backward = B2 (:class:`_ChainSweepBwd`) with ``dw = df * u_n``.  Only
+    ``f`` is differentiable: the scales are constants (exact for the LOG
+    overlap, as ``sweep_bwd`` treats them), and ustack, scales and ulast
+    are B1's stored values, returned for the backward.  Its vmap rule runs
+    all lanes of a ``torch.func.vmap`` as one sweep with a lane axis."""
 
     @staticmethod
-    def forward(ctx, u0, M, w):
+    def forward(u0, M, w):
         ustack, scales, f, logsum, ulast = _route(M, _sweep_fwd_plain, _sweep_fwd_cuda)(u0, M, w)
-        ctx.save_for_backward(M, w, ustack, scales, ulast)
-        ctx.mark_non_differentiable(logsum)
-        return f, logsum
+        return f, logsum, ustack, scales, ulast
 
     @staticmethod
-    def backward(ctx, df, _dlogsum):
+    def setup_context(ctx, inputs, output):
+        _, M, w = inputs
+        _, logsum, ustack, scales, ulast = output
+        ctx.save_for_backward(M, w, ustack, scales, ulast)
+        ctx.mark_non_differentiable(logsum, ustack, scales, ulast)
+
+    @staticmethod
+    def backward(ctx, df, *_):
         M, w, ustack, scales, ulast = ctx.saved_tensors
         du0 = dM = dw = None
         if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            dM, du0 = _route(M, _sweep_bwd_plain, _sweep_bwd_cuda)(
-                (df * w).contiguous(), M, ustack, scales)
+            dM, du0 = _ChainSweepBwd.apply((df.unsqueeze(-1) * w).contiguous(), M, ustack,
+                                           scales)
         if ctx.needs_input_grad[2]:
-            dw = df * ulast
+            dw = df.unsqueeze(-1) * ulast
         return du0, dM, dw
+
+    @staticmethod
+    def vmap(info, in_dims, u0, M, w):
+        return _ChainSweep.apply(*_lanes_first(info.batch_size, in_dims, (u0, M, w))), (0,) * 5
+
+
+class _ChainSweepBwd(torch.autograd.Function):
+    """``(r0, M, ustack, scales) -> (dM, du0)``: B2, the VJP of
+    :class:`_ChainSweep`, with the same lane axes and vmap rule; it has no
+    derivative of its own."""
+
+    @staticmethod
+    def forward(r0, M, ustack, scales):
+        return _route(M, _sweep_bwd_plain, _sweep_bwd_cuda)(r0, M, ustack, scales)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *_):
+        raise NotImplementedError("the chain sweep's backward (B2) is not differentiable")
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        return _ChainSweepBwd.apply(*_lanes_first(info.batch_size, in_dims, args)), (0, 0)
 
 
 def mv_chain_log_overlap_cuda(v0, M, w) -> torch.Tensor:
     """``log |v0 . (prod M_i) . w|`` through the B1/B2 kernels (float32,
     differentiable); matches :func:`mv_chain_log_overlap` to f32 rounding.
-    The s0 pre-scale stays outside the kernel, as in JAX."""
+    The s0 pre-scale stays outside the kernel, as in JAX.  Under
+    ``torch.func.vmap`` every lane's sweep runs in one launch."""
     if M is None:
         return mv_chain_log_overlap(v0, M, w)
     s0 = (v0.abs().max() + _TINY).detach()
-    f, logsum = _ChainSweep.apply((v0 / s0).contiguous(), M.contiguous(), w.contiguous())
+    f, logsum = _ChainSweep.apply((v0 / s0).contiguous(), M.contiguous(), w.contiguous())[:2]
     return torch.log(s0) + logsum + torch.log(torch.abs(f) + _TINY)
 
 

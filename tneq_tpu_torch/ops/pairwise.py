@@ -18,8 +18,9 @@ overflows beyond ~24 qubits.
 
 Each step is re-lettered to ``a-zA-Z`` (``torch.einsum`` takes no other
 symbols; a large circuit's equation goes past 52 into Unicode), and on the
-card a step whose terms have more than ``CUDA_MAX_DIMS`` dimensions
-raises.  Operands are promoted to one dtype first, as ``jnp.einsum`` does.
+card a step whose terms have more than ``CUDA_MAX_DIMS`` dimensions, lane
+axes of ``torch.func.vmap`` included, raises.  Operands are promoted to
+one dtype first, as ``jnp.einsum`` does.
 
 Path selection is memory-guarded (:func:`choose_path`): the native path
 finder's path when its largest intermediate fits ``max_intermediate``, else
@@ -37,6 +38,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch._C._functorch as _functorch
 
 from ..native.path import find_path
 
@@ -206,15 +208,29 @@ def _lettered(equation: str) -> Tuple[str, int]:
     return "".join(names.get(ch, ch) for ch in equation), rank
 
 
+def _vmap_dims(t: torch.Tensor) -> int:
+    """The lane axes ``torch.func.vmap`` adds to ``t``'s physical tensor (one
+    per vmap level; a grad level adds none)."""
+    n = 0
+    while _functorch.is_functorch_wrapped_tensor(t):
+        n += int(_functorch.is_batchedtensor(t))
+        t = _functorch.get_unwrapped(t)
+    return n
+
+
 def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` of ``equation`` re-lettered to a-zA-Z; on the card a
-    term of more than ``CUDA_MAX_DIMS`` dimensions raises."""
+    term of more than ``CUDA_MAX_DIMS`` dimensions raises, counting the lane
+    axes that ``torch.func.vmap`` adds."""
     lettered, rank = _lettered(equation)
-    if rank > CUDA_MAX_DIMS and operands[0].is_cuda:
-        raise ValueError(
-            f"a pairwise step of this contraction has a rank-{rank} tensor; "
-            f"CUDA's elementwise kernels take at most {CUDA_MAX_DIMS} dimensions"
-        )
+    if operands[0].is_cuda:
+        lanes = max(_vmap_dims(o) for o in operands)
+        if rank + lanes > CUDA_MAX_DIMS:
+            raise ValueError(
+                f"a pairwise step of this contraction has a rank-{rank} tensor"
+                + (f" with {lanes} lane axis" if lanes else "")
+                + f"; CUDA's elementwise kernels take at most {CUDA_MAX_DIMS} dimensions"
+            )
     return torch.einsum(lettered, *operands)
 
 

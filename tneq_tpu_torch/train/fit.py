@@ -1,10 +1,10 @@
 """Masked fidelity fits against a dense target, and their helpers.
 
 Counterpart of ``tneq_tpu/train/fit.py``: ``identity_cores``,
-``_pair_by_kind``, ``transparent_cores``, ``FitResult`` and
-:func:`make_masked_fidelity_fit`.  The stacked-real pair forms
-(``pair_identity_cores``, ``complex_as_real=True``) come with ROADMAP A,
-item 7c, and the fit's vmapped ``.batched`` lanes with items 5/6.
+``_pair_by_kind``, ``transparent_cores``, ``FitResult``,
+``pair_identity_cores`` and :func:`make_masked_fidelity_fit` with its
+stacked-real pair form (``complex_as_real=True``) and its vmapped
+``.batched`` lanes.
 
 A pruned core is substituted by an identity-like core through a mask
 (``effective = mask·params + (1-mask)·identity``,
@@ -19,8 +19,10 @@ from typing import Callable, Mapping, NamedTuple
 
 import numpy as np
 import torch
+from torch.func import grad_and_value
 
 from ..graph.dsl import CircuitGraph
+from ..ops.complex_pair import make_pair_core_only_fn, pair_fidelity
 from ..ops.contract import make_core_only_fn
 from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
@@ -34,6 +36,8 @@ __all__ = [
     "make_masked_fidelity_fit",
     "FitResult",
     "numpy_dtype",
+    "pair_identity_cores",
+    "functional_step",
 ]
 
 
@@ -143,9 +147,39 @@ def transparent_cores(graph: CircuitGraph, dtype=torch.complex64, *,
 
 class FitResult(NamedTuple):
     params: dict
-    infidelity: torch.Tensor  # 1 - fidelity at exit
+    infidelity: torch.Tensor  # 1 - fidelity at exit (per lane for .batched)
     steps: int  # updates applied
     opt_state: object
+
+
+def pair_identity_cores(graph: CircuitGraph):
+    """Pair-form identity gates (host numpy, float32): real part I, imaginary
+    part 0.  Used by the complex-as-real fits (``ops/complex_pair.py``)."""
+    out = {}
+    for core in graph.cores:
+        if core.input_dim != core.output_dim:
+            raise ValueError(
+                f"core {core.name!r} has input_dim {core.input_dim} != "
+                f"output_dim {core.output_dim}; identity masking undefined"
+            )
+        eye = np.eye(core.input_dim, dtype=np.float32).reshape(core.shape)
+        out[core.name] = np.stack([eye, np.zeros_like(eye)])
+    return out
+
+
+def functional_step(loss_fn: Callable, optimizer: GradientTransformation) -> Callable:
+    """``step(params, opt_state, *args) -> (params, opt_state, metric)`` for
+    ``loss_fn(params, *args) -> (loss, metric)``: ``torch.func`` gradient of
+    the loss, then the optimizer's update.  Pure, so ``FitDrivers.batched``
+    can vmap it over lanes; the scalar scopes run the same function."""
+    grad_fn = grad_and_value(loss_fn, has_aux=True)
+
+    def step(params, opt_state, *args):
+        grads, (_, metric) = grad_fn(params, *args)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        return {k: params[k] + updates[k] for k in params}, opt_state, metric
+
+    return step
 
 
 def masked_cores(
@@ -183,18 +217,19 @@ def make_masked_fidelity_fit(
       ``order`` axis convention), on ``device``.
     - The loop exits once ``1 - fidelity < tol``; ``loss_kind='raw'``
       minimises 1 − F (the reference objective), ``'log'`` −log F.
+    - ``complex_as_real``: params and target are stacked-real pairs
+      (``[2, *shape]``, ``ops/complex_pair.py``) and the fit runs on real
+      tensors only; pass a pair optimizer (``optim.pair_stiefel.pair_sgdg``).
     - ``jit_scope`` keeps the JAX names and selects the driver: 'fit' tests
       the exit before every step, 'step' every ``sync_every`` steps,
       'chunk' after whole ``sync_every``-step chunks (``_fit_driver``).
     - ``matmul_precision`` ('highest' default: full f32, TF32 off) holds
       within the fit only.  ``device``: where the identity cores live — the
       params, mask and target handed to ``fit`` must be there too.
+
+    ``fit.batched(params, masks, target, chunk_steps=0)`` runs one lane per
+    row of ``masks`` in lockstep from ``params`` (``FitDrivers.batched``).
     """
-    if complex_as_real:
-        raise NotImplementedError(
-            "complex_as_real needs ops/complex_pair.py and the pair "
-            "identities (ROADMAP A, item 7c)"
-        )
     if jit_scope not in ("fit", "step", "chunk"):
         raise ValueError(
             f"jit_scope must be 'fit', 'step' or 'chunk', got {jit_scope!r}"
@@ -202,30 +237,25 @@ def make_masked_fidelity_fit(
     if loss_kind not in ("raw", "log"):
         raise ValueError(f"loss_kind must be 'raw' or 'log', got {loss_kind!r}")
     dev = resolve_device(device)
-    core_fn = make_core_only_fn(graph, order)
-    idents = {k: torch.as_tensor(v).to(device=dev, dtype=dtype)
-              for k, v in identity_cores(graph, dtype).items()}
+    if complex_as_real:
+        core_fn, fid_fn = make_pair_core_only_fn(graph, order), pair_fidelity
+        cast, idents_np = torch.float32, pair_identity_cores(graph)
+    else:
+        core_fn, fid_fn = make_core_only_fn(graph, order), fidelity
+        cast, idents_np = dtype, identity_cores(graph, dtype)
+    idents = {k: torch.as_tensor(v).to(device=dev, dtype=cast) for k, v in idents_np.items()}
     names = graph.core_names
 
     def loss_fn(params, mask, target):
         """(loss, 1 − F): 'log' gives a scale-free gradient where a cold
         start sits at F ~ 2^-2n and the raw gradient ∝ F dies."""
-        fid = fidelity(core_fn(masked_cores(params, mask, idents, names, dtype)), target)
+        fid = fid_fn(core_fn(masked_cores(params, mask, idents, names, cast)), target)
         if loss_kind == "log":
             return -torch.log(fid + 1e-30), 1.0 - fid
         return 1.0 - fid, 1.0 - fid
 
-    def _step(params, opt_state, mask, target):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        loss, infid = loss_fn(leaves, mask, target)
-        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = {k: params[k].detach() + updates[k] for k in params}
-        return params, opt_state, infid.detach()
-
     drivers = FitDrivers(
-        _step, optimizer, max_steps, sync_every,
+        functional_step(loss_fn, optimizer), optimizer, max_steps, sync_every,
         running=lambda infid: infid >= tol, init_metric=1.0,
         matmul_precision=matmul_precision,
     )
@@ -237,10 +267,10 @@ def make_masked_fidelity_fit(
         return FitResult(p, infid, steps, o)
 
     def batched(params, masks, target, chunk_steps: int = 0) -> FitResult:
-        raise NotImplementedError(
-            "the vmapped lockstep lanes (FitDrivers.batched) wait for the "
-            "batched prune (ROADMAP A, items 5/6)"
-        )
+        """Lockstep lanes over mask rows (see ``FitDrivers.batched``)."""
+        p_b, o_b, steps, infid_b = drivers.batched(params, masks, target,
+                                                   chunk_steps=chunk_steps)
+        return FitResult(p_b, infid_b, steps, o_b)
 
     fit.batched = batched
     fit.scope = jit_scope

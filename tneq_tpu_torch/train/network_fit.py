@@ -18,9 +18,11 @@ the LOG gradient exact), so it stays finite in float32 at any depth:
 - any other graph (trees, the one-core chain) runs the rescaled pairwise
   executor of ``ops/pairwise.py``.
 
-The multi-chip mesh and the stacked-real ``complex_as_real`` fits wait for
-later slices and raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+The masked fit's stacked-real pair form (``complex_as_real=True``) takes
+neither sweep, as in JAX: its overlaps run the pair twin of the rescaled
+executor (``ops/complex_pair.make_pair_log_abs_overlap_fn``).  The
+multi-chip mesh waits for a later slice and raises ``NotImplementedError``
+naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..graph.dsl import CircuitGraph
 from ..ops.chain_overlap import fused_chain_log_overlap, fused_chain_supported
+from ..ops.complex_pair import make_pair_log_abs_overlap_fn
 from ..ops.mps_sweep import is_mps_chain
 from ..ops.pairwise import _TINY, _rescale, make_log_abs_overlap_fn
 from ..ops.row_scan import make_row_scan_log_overlap_fn, supports_row_scan
@@ -40,7 +43,7 @@ from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.device import matmul_precision as _precision
 from ._fit_driver import FitDrivers
-from .fit import FitResult, identity_cores, masked_cores
+from .fit import FitResult, functional_step, identity_cores, masked_cores, pair_identity_cores
 
 __all__ = [
     "make_masked_network_fidelity_fit",
@@ -155,21 +158,22 @@ def make_masked_network_fidelity_fit(
     ``1 − F < tol`` or ``max_steps``.  The overlaps contract as in
     :func:`network_log_fidelity`: a chain of uniform bond by the transfer
     sweep, a layered 2-local circuit by the row sweep, any other graph by
-    the rescaled pairwise executor.  ``jit_scope`` keeps the JAX names and
-    selects the driver: 'fit' tests the exit before every step, 'step'
-    every ``sync_every`` steps, 'chunk' after whole ``sync_every``-step
-    chunks (see ``_fit_driver``).  ``identities`` overrides the substitution
-    cores (MPS experiments pass ``transparent_cores(..., pairing='kind')``).
+    the rescaled pairwise executor.  ``complex_as_real``: params and target
+    are stacked-real pairs and every overlap runs the pair executor (pass a
+    pair optimizer).  ``jit_scope`` keeps the JAX names and selects the
+    driver: 'fit' tests the exit before every step, 'step' every
+    ``sync_every`` steps, 'chunk' after whole ``sync_every``-step chunks
+    (see ``_fit_driver``).  ``identities`` overrides the substitution cores
+    (MPS experiments pass ``transparent_cores(..., pairing='kind')``).
     ``matmul_precision`` ('highest' default: full f32, TF32 off; 'high' /
     'default') holds within the fit only.  ``device``: where the
     substitution cores live — the params and targets handed to ``fit`` must
     be there too.
+
+    ``fit.batched(params, masks, target_params, target_mask,
+    chunk_steps=0)`` runs one lane per row of ``masks`` in lockstep from
+    ``params``, the target prepared once and shared by the lanes.
     """
-    if complex_as_real:
-        raise NotImplementedError(
-            "complex_as_real needs ops/complex_pair.py and "
-            "optim/pair_stiefel.py (ROADMAP queue A, item 7c)"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "bond-sliced multi-device overlaps need parallel/mp.py "
@@ -179,15 +183,23 @@ def make_masked_network_fidelity_fit(
     bonds = {graph.cores[0].shape[-1], graph.cores[-1].shape[0]}
     for s in mid_shapes:
         bonds |= {s[0], s[-1]}
-    use_chain = _is_chain(graph) and len(mid_shapes) <= 1 and len(bonds) == 1
-    generic_overlap = None if use_chain else _overlap_fn(graph)
+    use_chain = (not complex_as_real and _is_chain(graph) and len(mid_shapes) <= 1
+                 and len(bonds) == 1)
+    if complex_as_real:
+        generic_overlap = make_pair_log_abs_overlap_fn(graph)
+    else:
+        generic_overlap = None if use_chain else _overlap_fn(graph)
     if jit_scope not in ("fit", "step", "chunk"):
         raise ValueError(
             f"jit_scope must be 'fit', 'step' or 'chunk', got {jit_scope!r}"
         )
     dev = resolve_device(device)
-    idents_np = identities if identities is not None else identity_cores(graph, dtype)
-    idents = {k: torch.as_tensor(np.asarray(v)).to(device=dev, dtype=dtype)
+    cast = torch.float32 if complex_as_real else dtype
+    if identities is not None:
+        idents_np = identities
+    else:
+        idents_np = pair_identity_cores(graph) if complex_as_real else identity_cores(graph, dtype)
+    idents = {k: torch.as_tensor(np.asarray(v)).to(device=dev, dtype=cast)
               for k, v in idents_np.items()}
     names = graph.core_names
     # exit when log F > log(1 - tol), tested in float32 as in JAX
@@ -203,28 +215,20 @@ def make_masked_network_fidelity_fit(
         return generic_overlap(a, b)
 
     def neg_log_f(params, mask, target_eff_n, log_tt):
-        eff = _normalize(masked_cores(params, mask, idents, names, dtype))
-        return -(2.0 * log_abs_overlap(eff, target_eff_n)
-                 - log_abs_overlap(eff, eff) - log_tt)
+        eff = _normalize(masked_cores(params, mask, idents, names, cast))
+        nlf = -(2.0 * log_abs_overlap(eff, target_eff_n)
+                - log_abs_overlap(eff, eff) - log_tt)
+        return nlf, nlf
 
     def prepare(target_params, target_mask):
         """Loop-invariant target quantities, computed once per fit."""
         with torch.no_grad(), _precision(matmul_precision):
             target_eff_n = _normalize(masked_cores(target_params, target_mask, idents,
-                                                   names, dtype))
+                                                   names, cast))
             return target_eff_n, log_abs_overlap(target_eff_n, target_eff_n)
 
-    def _step(params, opt_state, mask, target_eff_n, log_tt):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        nlf = neg_log_f(leaves, mask, target_eff_n, log_tt)
-        grads = dict(zip(leaves, torch.autograd.grad(nlf, list(leaves.values()))))
-        with torch.no_grad():
-            updates, opt_state = optimizer.update(grads, opt_state, params)
-            params = {k: params[k] + updates[k] for k in params}
-        return params, opt_state, nlf.detach()
-
     drivers = FitDrivers(
-        _step, optimizer, max_steps, sync_every,
+        functional_step(neg_log_f, optimizer), optimizer, max_steps, sync_every,
         running=lambda nlf: nlf > neg_log_tol, init_metric=1e9,
         matmul_precision=matmul_precision,
     )
@@ -237,6 +241,15 @@ def make_masked_network_fidelity_fit(
         # 1 - F from the exit-triggering -log F (pre-final-step)
         return FitResult(p, -torch.expm1(-nlf), steps, o)
 
+    def batched(params, masks, target_params, target_mask, chunk_steps: int = 0) -> FitResult:
+        """Lockstep lanes over mask rows (see ``FitDrivers.batched``); the
+        target is prepared once and shared by the lanes."""
+        target_eff_n, log_tt = prepare(target_params, target_mask)
+        p_b, o_b, steps, nlf_b = drivers.batched(params, masks, target_eff_n, log_tt,
+                                                 chunk_steps=chunk_steps)
+        return FitResult(p_b, -torch.expm1(-nlf_b), steps, o_b)
+
+    fit.batched = batched
     fit.scope = jit_scope
     # one update, and the prepared target it takes, for measuring a step alone
     fit.drivers = drivers
