@@ -88,7 +88,26 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    against complex64, and the CLI with ``--dtype complex64-pair
    --batched`` at 4 x 2 on card and host.  (f) One chunk of 8 lanes of
    the 32 x 5 float32 flagship in network mode: lane-steps/s, launches,
-   peak memory.
+   peak memory;
+11. inference — one JSON line per part.  (a) ``bench/large_n_probe`` at
+   its defaults: a 64-qubit, bond-16 float32 MPS chain, 200 SGD steps on
+   -log F (B1 = 3, B2 = 2 launches per step), step-0 -log F against the
+   host's, a falling loss, then 32 draws of the target through the chain
+   sampler, cold and warm: finite, in bounds, at least 8 distinct values,
+   repeated bit for bit on the card and held against the host's from the
+   same uniforms by JAX's bin-flip rule; fit steps/s, idle share, and
+   B1/B2 against plain at that depth (n = 61, S = 256).  Then 128 qubits,
+   cut to 50 fit steps: a falling loss, finite draws, B1/B2 at n = 125.
+   (b) The README's Quick start at its width through ``EngineSiamese``:
+   ``QCTN(wall_graph(8, layers=4, dim=2))``, complex64, a batch of 32:
+   the contraction plain and scaled, the gradient (dict and list), the
+   full, marginal and conditional probabilities and 256 draws at grid
+   1000 (the generic env sampler), each against the host at the same
+   inputs, with seconds cold and warm, launches per call and the largest
+   pairwise step.  (c) ``full_probability`` (pairwise einsum) against
+   ``Trainer.probability`` (one B3 launch) on the born_rule cell, and log
+   P at 30 qubits (cores x16), finite on the card where P is not, against
+   the host's.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -194,6 +213,31 @@ TOL_LANE = 1e-4
 # is about 17
 PAIR_STEPS = 20
 TOL_PAIR = 1e-6
+# the inference phase (11).  (a) large_n_probe at its defaults, 64 qubits,
+# bond 16, 200 fit steps; then 128 qubits, cut to 50 fit steps (default
+# 200).  Per fit step the three chain overlaps of -log F launch B1 three
+# times and the two that need a gradient B2 twice (the target needs none).
+LARGE_N = ((64, 200), (128, 50))  # (qubits, fit steps)
+LARGE_N_BOND = 16
+LARGE_N_SAMPLES = 32
+LARGE_N_GRID = 200  # sample()'s default
+LARGE_N_PER_STEP = {"chain_sweep_fwd": 3, "chain_sweep_bwd": 2}
+MIN_DISTINCT = 8  # distinct draws at 3 decimals
+# (b) the README's Quick start at its width: QCTN(wall_graph(8, layers=4,
+# dim=2)), complex64, a batch of 32, K = 2; engine.sample of 256 draws at
+# the engine's default grid of 1000
+ENGINE_QUBITS, ENGINE_LAYERS, ENGINE_BATCH, ENGINE_SAMPLES = 8, 4, 32, 256
+ENGINE_GRID = 1000
+# card vs host at the same inputs: probabilities and losses, max-abs-
+# normalised over the batch (a probability far below the batch's largest
+# carries the rounding of the large terms it cancels); gradients the same
+# over all cores.  Draws from the same uniforms by JAX's bin-flip rule:
+# a row identical, or first apart by less than 4 grid bins; 3/4 identical.
+TOL_INFER = 1e-4
+FLIP_BINS = 4
+# (c) full_probability (pairwise einsum) against Trainer.probability (B3)
+# on the born_rule cell; log P at 30 qubits, cores x16, card vs host in log
+TOL_LOG30 = 1e-3
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -370,57 +414,60 @@ def _random_sweep(bond: int, n: int, seed: int, dev):
     return u0.contiguous(), M.contiguous(), w.contiguous()
 
 
-def phase_kernels() -> dict:
+def _sweep_case(bond: int, n: int, seed: int) -> dict:
+    """B1/B2 against their plain versions on one random chain of ``n``
+    middle sites, S = bond²: errors, times, launch plans and bounds."""
     import torch
 
     from tneq_tpu_torch.ops import chain_overlap as co
 
     dev = torch.device("cuda", 0)
-    cases = []
-    for bond in SWEEP_BONDS:
-        S = bond * bond
-        u0, M, w = _random_sweep(bond, SWEEP_N, seed=bond, dev=dev)
-        kf = co._sweep_fwd_cuda(u0, M, w)
-        pf = co._sweep_fwd_plain(u0, M, w)
-        torch.cuda.synchronize()
-        names = ("ustack", "scales", "f", "logsum", "ulast")
-        err = {nm: rel_err(k, p) for nm, k, p in zip(names, kf, pf)}
-        err["f"] = rel_err(kf[2], pf[2], scale=(pf[4] * w).abs().sum())
-        r0 = (1.7 * w).contiguous()
-        kb = co._sweep_bwd_cuda(r0, M, pf[0], pf[1])
-        pb = co._sweep_bwd_plain(r0, M, pf[0], pf[1])
-        torch.cuda.synchronize()
-        err["dM"] = rel_err(kb[0], pb[0])
-        err["du0"] = rel_err(kb[1], pb[1])
-        abs_fwd = max(float((k - p).abs().max()) for k, p in zip(kf, pf))
-        abs_bwd = max(float((k - p).abs().max()) for k, p in zip(kb, pb))
-        calls = {
-            "chain_sweep_fwd": (lambda: co._sweep_fwd_cuda(u0, M, w),
-                                lambda: co._sweep_fwd_plain(u0, M, w)),
-            "chain_sweep_bwd": (lambda: co._sweep_bwd_cuda(r0, M, pf[0], pf[1]),
-                                lambda: co._sweep_bwd_plain(r0, M, pf[0], pf[1])),
+    S = bond * bond
+    u0, M, w = _random_sweep(bond, n, seed=seed, dev=dev)
+    kf = co._sweep_fwd_cuda(u0, M, w)
+    pf = co._sweep_fwd_plain(u0, M, w)
+    torch.cuda.synchronize()
+    names = ("ustack", "scales", "f", "logsum", "ulast")
+    err = {nm: rel_err(k, p) for nm, k, p in zip(names, kf, pf)}
+    err["f"] = rel_err(kf[2], pf[2], scale=(pf[4] * w).abs().sum())
+    r0 = (1.7 * w).contiguous()
+    kb = co._sweep_bwd_cuda(r0, M, pf[0], pf[1])
+    pb = co._sweep_bwd_plain(r0, M, pf[0], pf[1])
+    torch.cuda.synchronize()
+    err["dM"] = rel_err(kb[0], pb[0])
+    err["du0"] = rel_err(kb[1], pb[1])
+    abs_fwd = max(float((k - p).abs().max()) for k, p in zip(kf, pf))
+    abs_bwd = max(float((k - p).abs().max()) for k, p in zip(kb, pb))
+    calls = {
+        "chain_sweep_fwd": (lambda: co._sweep_fwd_cuda(u0, M, w),
+                            lambda: co._sweep_fwd_plain(u0, M, w)),
+        "chain_sweep_bwd": (lambda: co._sweep_bwd_cuda(r0, M, pf[0], pf[1]),
+                            lambda: co._sweep_bwd_plain(r0, M, pf[0], pf[1])),
+    }
+    times, plans = {}, {}
+    for name, (kernel, plain) in calls.items():
+        dms = device_ms(kernel)
+        times[name] = {
+            "ms": cuda_ms(kernel),
+            "device_ms": dms,
+            "per_site_device_ms": dms / n if dms else None,
+            "plain_ms": cuda_ms(plain),
+            "plain_device_ms": device_ms(plain),
         }
-        times, plans = {}, {}
-        for name, (kernel, plain) in calls.items():
-            dms = device_ms(kernel)
-            times[name] = {
-                "ms": cuda_ms(kernel),
-                "device_ms": dms,
-                "per_site_device_ms": dms / SWEEP_N if dms else None,
-                "plain_ms": cuda_ms(plain),
-                "plain_device_ms": device_ms(plain),
-            }
-            cluster, strip, stages, tile_rows, smem = co._plan_for(
-                M, backward=name == "chain_sweep_bwd")
-            plans[name] = {"cluster": cluster, "strip": strip, "ring_stages": stages,
-                           "tile_rows": tile_rows, "smem_bytes": smem}
-        case = {"n": SWEEP_N, "S": S, "rel_err": err,
-                "max_abs_err": {"chain_sweep_fwd": abs_fwd, "chain_sweep_bwd": abs_bwd},
-                "times": times, "plans": plans, "bounds": sweep_bounds(SWEEP_N, S)}
-        cases.append(case)
-        bad = {k: v for k, v in err.items() if not v <= TOL_KERNEL}
-        check(not bad, f"S={S}: kernel disagrees with plain version beyond "
-                       f"{TOL_KERNEL}: {bad}")
+        cluster, strip, stages, tile_rows, smem = co._plan_for(
+            M, backward=name == "chain_sweep_bwd")
+        plans[name] = {"cluster": cluster, "strip": strip, "ring_stages": stages,
+                       "tile_rows": tile_rows, "smem_bytes": smem}
+    bad = {k: v for k, v in err.items() if not v <= TOL_KERNEL}
+    check(not bad, f"n={n}, S={S}: kernel disagrees with plain version beyond "
+                   f"{TOL_KERNEL}: {bad}")
+    return {"n": n, "S": S, "rel_err": err,
+            "max_abs_err": {"chain_sweep_fwd": abs_fwd, "chain_sweep_bwd": abs_bwd},
+            "times": times, "plans": plans, "bounds": sweep_bounds(n, S)}
+
+
+def phase_kernels() -> dict:
+    cases = [_sweep_case(bond, SWEEP_N, seed=bond) for bond in SWEEP_BONDS]
     rec = {"phase": "kernels", "tolerance": TOL_KERNEL, "cases": cases}
     emit(rec)
     return rec
@@ -1570,8 +1617,292 @@ def phase_batched(smi: str, experiment, dense_fitted) -> list:
     return recs
 
 
+def draws_agree(a, b, bounds, G) -> dict:
+    """JAX's bin-flip rule for two draw blocks ``[S, nq]`` from the same
+    uniforms (``tests/test_infer.py``)."""
+    import numpy as np
+
+    bin_w = (bounds[1] - bounds[0]) / (G - 1)
+    ident, worst = 0, 0.0
+    for ra, rb in zip(np.asarray(a), np.asarray(b)):
+        diff = np.nonzero(ra != rb)[0]
+        if diff.size == 0:
+            ident += 1
+        else:
+            worst = max(worst, abs(float(ra[diff[0]] - rb[diff[0]])) / bin_w)
+    ok = worst < FLIP_BINS and ident >= len(a) * 3 // 4
+    return {"ok": bool(ok), "identical_rows": ident, "rows": len(a),
+            "largest_first_difference_bins": worst}
+
+
+def _call_stats(fn) -> dict:
+    """Seconds of a cold and a warm call (synchronised), and the CUDA
+    kernels one call launches (torch.profiler)."""
+    import torch
+
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    prof = _profile_steps(fn, times[1] * 1e3, steps=1)
+    return {"out": out, "cold_s": times[0], "warm_s": times[1],
+            "launches": prof["kernel_launches_per_step"],
+            "device_busy_ms": prof["device_busy_ms_per_step"],
+            "device_idle_share": prof["device_idle_share"]}
+
+
+def _norm_err(card, host) -> float:
+    import torch
+
+    card, host = torch.as_tensor(card).cpu().double(), torch.as_tensor(host).double()
+    return float((card - host).abs().max()) / max(float(host.abs().max()), 1e-300)
+
+
+def phase_large_n(smi: str) -> dict:
+    """Phase 11 (a): ``bench/large_n_probe`` on the card, at 64 and at 128
+    qubits."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.bench import large_n_probe as lnp
+    from tneq_tpu_torch.bench.headline import sgd_step
+    from tneq_tpu_torch.infer.chain_sampling import _chain_sample_from_uniforms, _draw_uniforms
+    from tneq_tpu_torch.model.qctn import params_from_numpy
+    from tneq_tpu_torch.ops import chain_overlap as co
+    from tneq_tpu_torch.train.network_fit import network_log_fidelity
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    parts, launches = [], {k: 0 for k in LARGE_N_PER_STEP}
+    for n, steps in LARGE_N:
+        t0 = time.perf_counter()
+        co.reset_launch_counts()
+        run = lnp.fit_and_sample(n, LARGE_N_BOND, steps, LARGE_N_SAMPLES, "cuda")
+        counts = co.launch_counts()
+        seconds = time.perf_counter() - t0
+        for k in launches:
+            launches[k] += counts[k]
+        rec, losses, draws = run["record"], run["losses"], run["draws"]
+        g = run["graph"]
+        check(bool(torch.isfinite(losses).all()), f"large_n {n}q: non-finite loss")
+        check(float(losses[-1]) < float(losses[0]),
+              f"large_n {n}q: loss did not fall: {float(losses[0])} -> {float(losses[-1])}")
+        want = {k: v * steps for k, v in LARGE_N_PER_STEP.items()}
+        check(run["launches"] == want,
+              f"large_n {n}q: launches {run['launches']} over {steps} steps, expected {want}")
+        check(draws.shape == (LARGE_N_SAMPLES, n) and bool(np.isfinite(draws).all())
+              and float(np.abs(draws).max()) <= 5.0,
+              f"large_n {n}q: draws not finite in [-5, 5] of shape {(LARGE_N_SAMPLES, n)}")
+        part = {"qubits": n, "bond": LARGE_N_BOND, "fit_steps": steps, "record": rec,
+                "fit_steps_per_s": rec["value"], "seconds": seconds,
+                "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+                "launches_timed_fit": run["launches"],
+                "launches_per_step": {k: v / steps for k, v in run["launches"].items()},
+                "launches_with_warmup": counts,
+                "sample_cold_s": rec["sample_cold_s"], "sample_warm_s": rec["sample_warm_s"],
+                "distinct_values": int(len(np.unique(draws.round(3))))}
+        target = params_from_numpy(run["target"], dev)
+        box = {"p": params_from_numpy(run["start"], dev)}
+
+        def one_step():
+            box["p"], _ = sgd_step(g, box["p"], target)
+
+        part["profile"] = _profile_steps(one_step, 1e3 / rec["value"])
+        part["sweep_case"] = _sweep_case(LARGE_N_BOND, n - 3, seed=n)
+        if n == LARGE_N[0][0]:
+            with torch.no_grad():
+                host0 = float(-network_log_fidelity(
+                    g, params_from_numpy(run["start"], "cpu"),
+                    params_from_numpy(run["target"], "cpu")))
+            rel0 = abs(float(losses[0]) - host0) / max(abs(host0), 1e-30)
+            check(rel0 <= TOL_STEP0, f"large_n {n}q: step-0 -log F {float(losses[0])} "
+                                     f"vs host {host0} (rel {rel0})")
+            check(part["distinct_values"] >= MIN_DISTINCT,
+                  f"large_n {n}q: {part['distinct_values']} distinct draws")
+            # the cold call's uniforms, drawn anew from its generator; the
+            # card repeats its draws bit for bit, the host by the rule
+            gen = torch.Generator(device=dev).manual_seed(lnp.SAMPLE_SEEDS[0])
+            us = _draw_uniforms(gen, g.nqubits, LARGE_N_SAMPLES, dev)
+            K = g.output_ranks[0]
+            kw = dict(grid_size=LARGE_N_GRID, dtype=torch.float32)
+            again = _chain_sample_from_uniforms(g, target, run["states"], K, us, **kw)
+            host = _chain_sample_from_uniforms(
+                g, params_from_numpy(run["target"], "cpu"),
+                [s.cpu() for s in run["states"]], K, us.cpu(), **kw)
+            check(np.array_equal(again.cpu().numpy(), draws),
+                  f"large_n {n}q: the card's draws from the same uniforms differ")
+            agree = draws_agree(draws, host.numpy(), (-5.0, 5.0), LARGE_N_GRID)
+            check(agree["ok"], f"large_n {n}q: card vs host draws {agree}")
+            part.update(loss_step0=float(losses[0]), loss_step0_host=host0,
+                        loss_step0_rel_err=rel0, card_vs_host_draws=agree)
+        parts.append(part)
+    rec = {"phase": "inference", "part": "a_large_n",
+           "program": "bench/large_n_probe.py::fit_and_sample: mps_graph(n, 16, phys=2), "
+                      "float32, SGD lr 1e-3 on -log F, then sample(32 draws, K=2, grid 200)",
+           "launches": launches, "parts": parts,
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(rec)
+    return rec
+
+
+def phase_engine(smi: str) -> dict:
+    """Phase 11 (b): the README's Quick start through ``EngineSiamese`` on
+    the card, each call against the host's at the same inputs."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.engine import EngineSiamese
+    from tneq_tpu_torch.graph import parse_graph, wall_graph
+    from tneq_tpu_torch.infer.chain_sampling import _draw_uniforms
+    from tneq_tpu_torch.infer.sampling import _sample_from_uniforms
+    from tneq_tpu_torch.model.qctn import QCTN
+    from tneq_tpu_torch.ops import pairwise as pw
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    t_phase = time.perf_counter()
+    g = parse_graph(wall_graph(ENGINE_QUBITS, layers=ENGINE_LAYERS, dim=2))
+    x = np.random.default_rng(0).normal(size=(ENGINE_BATCH, ENGINE_QUBITS)).astype(np.float32)
+    side = {}
+    for where in ("cuda", "cpu"):
+        model = QCTN(g, seed=0, dtype=torch.complex64, device=where)
+        eng = EngineSiamese(device=where)
+        mx, _ = eng.generate_data(x, K=2)
+        side[where] = (model, eng, mx, basis_states(g, device=where))
+
+    def calls(model, eng, mx, states):
+        return {
+            "contract": lambda: eng.contract_with_compiled_strategy(model, states, mx),
+            "contract_scaled": lambda: eng.contract_with_compiled_strategy(
+                model, states, mx, ret_type="scaled"),
+            "gradient_dict": lambda: eng.contract_with_compiled_strategy_for_gradient(
+                model, states, mx),
+            "gradient_list": lambda: eng.contract_with_compiled_strategy_for_gradient(
+                model, states, mx, ret="list"),
+            "full_probability": lambda: eng.calculate_full_probability(model, states, mx),
+            "marginal_probability": lambda: eng.calculate_marginal_probability(
+                model, states, [mx[0], mx[3], mx[5]], [0, 3, 5]),
+            "conditional_probability": lambda: eng.calculate_conditional_probability(
+                model, states, mx[:3], [0, 1, 2], [0]),
+            "sample": lambda: eng.sample(model, states, ENGINE_SAMPLES, 2),
+        }
+
+    card_calls, host_calls = calls(*side["cuda"]), calls(*side["cpu"])
+    results = {}
+    for name, fn in card_calls.items():
+        stats = _call_stats(fn)
+        card, host = stats.pop("out"), host_calls[name]() if name != "sample" else None
+        if name == "contract_scaled":
+            card, host = card[0] * torch.exp(card[1]), host[0] * torch.exp(host[1])
+        if name.startswith("gradient"):
+            (card_loss, card_g), (host_loss, host_g) = card, host
+            if name == "gradient_dict":
+                card_g, host_g = list(card_g.values()), list(host_g.values())
+            scale = max(float(h.abs().max()) for h in host_g)
+            stats["loss_rel_err"] = abs(float(card_loss) - float(host_loss)) / abs(float(host_loss))
+            stats["grad_err"] = max(float((c.cpu() - h).abs().max()) for c, h in
+                                    zip(card_g, host_g)) / scale
+            check(stats["loss_rel_err"] <= TOL_INFER and stats["grad_err"] <= TOL_INFER,
+                  f"engine {name}: loss rel {stats['loss_rel_err']}, grads {stats['grad_err']}")
+        elif name == "sample":
+            model, eng, _, states = side["cuda"]
+            us = _draw_uniforms(torch.Generator(device="cuda").manual_seed(0),
+                                ENGINE_QUBITS, ENGINE_SAMPLES, torch.device("cuda", 0))
+            hm, _, _, hs = side["cpu"]
+            host = _sample_from_uniforms(g, hm.params, hs, 2, us.cpu(), grid_size=ENGINE_GRID)
+            stats["card_vs_host_draws"] = draws_agree(card.cpu().numpy(), host.numpy(),
+                                                      (-5.0, 5.0), ENGINE_GRID)
+            check(tuple(card.shape) == (ENGINE_SAMPLES, ENGINE_QUBITS)
+                  and bool(torch.isfinite(card).all()),
+                  f"engine sample: shape {tuple(card.shape)} or non-finite draws")
+            check(stats["card_vs_host_draws"]["ok"],
+                  f"engine sample: card vs host {stats['card_vs_host_draws']}")
+            # the largest pairwise step of the generic sampler's env contractions
+            ranks, einsum = [], pw.einsum
+            pw.einsum = lambda eq, *ops: ranks.append(pw._lettered(eq)[1]) or einsum(eq, *ops)
+            try:
+                fn()
+            finally:
+                pw.einsum = einsum
+            stats["largest_pairwise_step_axes"] = max(ranks)
+            stats["pairwise_steps_per_call"] = len(ranks)
+        else:
+            stats["rel_err"] = _norm_err(card, host)
+            check(bool(torch.isfinite(card).all()) and stats["rel_err"] <= TOL_INFER,
+                  f"engine {name}: card vs host {stats['rel_err']}")
+        results[name] = stats
+    rec = {"phase": "inference", "part": "b_engine",
+           "program": "README Quick start: EngineSiamese on QCTN(wall_graph(8, layers=4, "
+                      "dim=2)), complex64, seed 0, x [32, 8] from default_rng(0), K = 2; "
+                      "sample 256 draws at grid 1000 (generic env sampler)",
+           "tolerance": TOL_INFER, "calls": results,
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(rec)
+    return rec
+
+
+def phase_probability_checks(smi: str) -> dict:
+    """Phase 11 (c): full_probability against the Trainer's B3 sweep on the
+    born_rule cell, and log P at 30 qubits on the card and the host."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.infer import full_probability
+    from tneq_tpu_torch.model.qctn import init_params
+    from tneq_tpu_torch.ops import transfer_step as ts
+    from tneq_tpu_torch.ops.features import generate_data, measurement_matrices
+    from tneq_tpu_torch.train.data import gaussian_batches
+    from tneq_tpu_torch.train.trainer import Trainer, basis_states
+
+    t_phase = time.perf_counter()
+    B, D, K = BORN_SHAPE
+    graph = parse_graph(mps_graph(8, D, phys=K))
+    params = init_params(graph, 0, torch.float32, device="cuda")
+    x = gaussian_batches(4, B, 8, seed=0, device="cuda")[0]
+    states = basis_states(graph, dtype=torch.float32, device="cuda")
+    tr = Trainer(graph, dtype=torch.float32, device="cuda")
+    ts.reset_launch_counts()
+    p_kernel = tr.probability(params, states, x)
+    counts = ts.launch_counts()
+    check(counts == {"transfer_step": 1, "transfer_step_complex": 0},
+          f"probability cross-check: B3/B4 launches {counts}, expected 1 / 0")
+    mx = measurement_matrices(x, K)
+    p_einsum = full_probability(graph, params, states, [mx[:, q] for q in range(8)])
+    born_err = _norm_err(p_einsum, p_kernel.cpu())
+    check(born_err <= TOL_INFER, f"full_probability vs Trainer.probability: {born_err}")
+
+    g30 = parse_graph(mps_graph(30, dim=2))
+    logs = {}
+    for where in ("cuda", "cpu"):
+        p30 = {k: 16.0 * v for k, v in init_params(g30, 0, torch.float32, where).items()}
+        s30 = basis_states(g30, dtype=torch.float32, device=where)
+        x30 = torch.as_tensor(np.random.default_rng(0).normal(size=(3, 30)).astype(np.float32),
+                              device=where)
+        m30, _ = generate_data(x30, 2, dtype=torch.float32)
+        logs[where] = full_probability(g30, p30, s30, m30, log=True).cpu()
+        if where == "cuda":
+            plain = full_probability(g30, p30, s30, m30)
+    log_err = float((logs["cuda"] - logs["cpu"]).abs().max())
+    check(bool(torch.isfinite(logs["cuda"]).all()), "log P at 30 qubits is not finite")
+    check(not bool(torch.isfinite(plain).all()), "P at 30 qubits (cores x16) is finite")
+    check(log_err <= TOL_LOG30, f"log P at 30 qubits, card vs host {log_err}")
+    rec = {"phase": "inference", "part": "c_probability_checks",
+           "born_rule": {"program": "mps_graph(8, 8, phys=4), float32, init seed 0, the "
+                                    "first gaussian_batches(4, 512, 8, seed=0) batch",
+                         "launches": counts, "max_abs_normalised_err": born_err},
+           "log30": {"program": "mps_graph(30, dim=2), float32, cores x16, x [3, 30]",
+                     "card": logs["cuda"].tolist(), "host": logs["cpu"].tolist(),
+                     "max_abs_err": log_err, "plain_finite": False},
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(rec)
+    return rec
+
+
 def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
-                 batched: list) -> dict:
+                 batched: list, large_n: dict, prob: dict) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
     lane_part = next(r for r in batched if r["part"] == "a_lane_kernels")
     mps_part = next(r for r in batched if r["part"] == "d_mps_experiment")
@@ -1586,7 +1917,8 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "route": "cuda",
             "source": "tneq_tpu_torch/csrc/chain_sweep.cu",
             "replaces": meta["replaces"],
-            "launches": bench["launches"][name],
+            # the bench run's and phase 11 (a)'s fits
+            "launches": bench["launches"][name] + large_n["launches"][name],
             "launches_per_step": bench["launches_per_step"][name],
             "max_abs_err": main_case["max_abs_err"][name],
             "ms": main_case["times"][name]["ms"],
@@ -1609,6 +1941,16 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                 "launches": mps_part["launches"][name],
                 "launches_per_chunk_step": mps_part["launches_per_chunk_step"][LANE_CHUNK][name],
             },
+            # phase 11 (a): the 64- and 128-qubit fits
+            "large_n": [{"n": part["sweep_case"]["n"], "S": part["sweep_case"]["S"],
+                         "ms": part["sweep_case"]["times"][name]["ms"],
+                         "device_ms": part["sweep_case"]["times"][name]["device_ms"],
+                         "plain_ms": part["sweep_case"]["times"][name]["plain_ms"],
+                         "bound_ms": part["sweep_case"]["bounds"][name]["bound_ms"],
+                         "bound_by": part["sweep_case"]["bounds"][name]["bound_by"],
+                         "max_abs_err": part["sweep_case"]["max_abs_err"][name],
+                         "launches_per_step": part["launches_per_step"][name]}
+                        for part in large_n["parts"]],
         })
     for name, run, shape in (("transfer_step", born, BORN_SHAPE),
                              ("transfer_step_complex", cli, CLI_SHAPE)):
@@ -1624,7 +1966,8 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "route": "cuda",
             "source": "tneq_tpu_torch/csrc/transfer_step.cu",
             "replaces": meta["replaces"],
-            "launches": run["launches"][name],
+            # the training run's, and phase 11 (c)'s probability
+            "launches": run["launches"][name] + prob["born_rule"]["launches"][name],
             "launches_per_step": run["launches_per_step"][name],
             "max_abs_err": case["max_abs_err"],
             "ms": case["ms"],
@@ -1671,10 +2014,14 @@ def main() -> int:
         _, dense_fitted = phase_brick(setup["nvidia_smi"])
         phase_brick_network(setup["nvidia_smi"], dense_fitted)
         batched = phase_batched(setup["nvidia_smi"], experiment, dense_fitted)
+        large_n = phase_large_n(setup["nvidia_smi"])
+        phase_engine(setup["nvidia_smi"])
+        prob = phase_probability_checks(setup["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
-    emit(kernels_line(kern, bench, transfer, born, cli, [lane_kern] + batched))
+    emit(kernels_line(kern, bench, transfer, born, cli, [lane_kern] + batched, large_n,
+                      prob))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

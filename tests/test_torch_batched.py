@@ -76,6 +76,28 @@ def _dense_target(gj, cores, planted):
         return np.array(j_contract(gj, eff))
 
 
+@pytest.fixture(scope="module")
+def brick():
+    """The 4 x 2 wall in both packages, its numpy cores by seed and its
+    dense targets by (seed, planted cores), each built once for the file."""
+    gt, gj = _brick()
+    cores = {seed: _cores(gt, seed) for seed in (0, 1, 2)}
+    targets = {(1, planted): _dense_target(gj, cores[1], list(planted))
+               for planted in ((5,), ())}
+    return gt, gj, cores, targets
+
+
+@pytest.fixture(scope="module")
+def mps_chain():
+    """The 6-qubit float32 chain of the chain test in both packages, with
+    its identities and numpy cores."""
+    gt, gj = parse_graph(mps_graph(6, 4, phys=2)), j_parse(j_mps(6, 4, phys=2))
+    idents_t, _ = transparent_cores(gt, torch.float32, pairing="kind")
+    idents_j, _ = j_transparent(gj, jnp.float32, pairing="kind")
+    return (gt, gj, idents_t, idents_j, _cores(gt, 2, torch.float32),
+            _cores(gt, 1, torch.float32))
+
+
 def _assert_lanes(rt, rj):
     assert rt.steps == int(rj.steps)
     got, want = rt.infidelity.numpy(), np.asarray(rj.infidelity)
@@ -86,9 +108,9 @@ def _assert_lanes(rt, rj):
 
 
 @pytest.mark.parametrize("retraction_prob", [0.0, 1.0])
-def test_dense_batched_matches_jax(retraction_prob):
-    gt, gj = _brick()
-    start, target = _cores(gt, 2), _dense_target(gj, _cores(gt, 1), [5])
+def test_dense_batched_matches_jax(brick, retraction_prob):
+    gt, gj, cores, targets = brick
+    start, target = cores[2], targets[1, (5,)]
     kw = dict(momentum=0.9, retraction_prob=retraction_prob)
     ft = make_masked_fidelity_fit(gt, t_sgdg(0.1, **kw), STEPS, device="cpu")
     fj = j_dense_fit(gj, j_sgdg(0.1, **kw), STEPS)
@@ -100,11 +122,11 @@ def test_dense_batched_matches_jax(retraction_prob):
 
 
 @pytest.mark.parametrize("retraction_prob", [0.0, 1.0])
-def test_network_batched_matches_jax(retraction_prob):
+def test_network_batched_matches_jax(brick, retraction_prob):
     """The brick wall's network fit (row sweep) in lanes; the target is
     prepared once and shared."""
-    gt, gj = _brick()
-    start, t_np = _cores(gt, 2), _cores(gt, 1)
+    gt, gj, cores, _ = brick
+    start, t_np = cores[2], cores[1]
     tmask = np.ones(gt.ncores, np.float32)
     tmask[5] = 0.0
     kw = dict(momentum=0.9, retraction_prob=retraction_prob)
@@ -119,14 +141,11 @@ def test_network_batched_matches_jax(retraction_prob):
 
 
 @pytest.mark.parametrize("retraction_prob", [0.0, 1.0])
-def test_mps_chain_batched_matches_jax(retraction_prob):
+def test_mps_chain_batched_matches_jax(mps_chain, retraction_prob):
     """A 6-qubit float32 MPS chain: the port's lanes run the chain sweep
     (its plain version with a lane axis, through the vmap rule), JAX's
     the einsum scan."""
-    gt, gj = parse_graph(mps_graph(6, 4, phys=2)), j_parse(j_mps(6, 4, phys=2))
-    idents_t, _ = transparent_cores(gt, torch.float32, pairing="kind")
-    idents_j, _ = j_transparent(gj, jnp.float32, pairing="kind")
-    start, t_np = _cores(gt, 2, torch.float32), _cores(gt, 1, torch.float32)
+    gt, gj, idents_t, idents_j, start, t_np = mps_chain
     tmask = np.ones(gt.ncores, np.float32)
     tmask[3] = 0.0
     kw = dict(momentum=0.9, retraction_prob=retraction_prob)
@@ -141,12 +160,12 @@ def test_mps_chain_batched_matches_jax(retraction_prob):
     _assert_lanes(rt, rj)
 
 
-def test_batched_matches_sequential_host_fit():
+def test_batched_matches_sequential_host_fit(brick):
     """Identical mask rows reproduce the sequential fit lane for lane, the
     retraction on: the lanes take the sequential fit's draws (chunk_steps=1
     is per-step lockstep)."""
-    gt, gj = _brick()
-    start, target = _cores(gt, 0), _dense_target(gj, _cores(gt, 1), [])
+    gt, _, cores, targets = brick
+    start, target = cores[0], targets[1, ()]
     fit = make_masked_fidelity_fit(gt, t_sgdg(0.1, momentum=0.9, retraction_prob=0.3), 40,
                                    tol=1e-8, jit_scope="step", device="cpu")
     mask = torch.ones(gt.ncores)
@@ -164,9 +183,9 @@ def test_batched_matches_sequential_host_fit():
     assert torch.equal(res.opt_state.generator.get_state(), ref.opt_state.generator.get_state())
 
 
-def test_batched_max_steps_rounds_up_and_any_lane_keeps_running():
-    gt, gj = _brick()
-    start, target = _cores(gt, 0), _dense_target(gj, _cores(gt, 1), [])
+def test_batched_max_steps_rounds_up_and_any_lane_keeps_running(brick):
+    gt, _, cores, targets = brick
+    start, target = cores[0], targets[1, ()]
     fit = make_masked_fidelity_fit(gt, t_sgdg(0.1, momentum=0.9, retraction_prob=0.0), 10,
                                    device="cpu")
     masks = torch.as_tensor(_masks(gt.ncores, [[], [1]]))
@@ -174,19 +193,19 @@ def test_batched_max_steps_rounds_up_and_any_lane_keeps_running():
                       chunk_steps=4)
     assert res.steps == 12  # 10 rounds up to whole chunks of 4
     # a lane already at the target (its own params) does not stop the others
-    tgt_cores = _cores(gt, 1)
-    t2 = torch.as_tensor(_dense_target(gj, tgt_cores, []))
+    tgt_cores = cores[1]
+    t2 = torch.as_tensor(targets[1, ()])
     res = fit.batched(params_from_numpy(tgt_cores, "cpu"), masks, t2, chunk_steps=2)
     infid = res.infidelity.numpy()
     assert infid[0] < 1e-3 <= infid[1] and res.steps == 10
 
 
-def test_pair_batched_matches_jax():
+def test_pair_batched_matches_jax(brick):
     """One pair x batched case: the dense 4 x 2 fit in stacked-real form."""
-    gt, gj = _brick()
-    cores, tcores = _cores(gt, 2), _cores(gt, 1)
+    gt, gj, all_cores, targets = brick
+    cores = all_cores[2]
     pair = lambda c: {k: np.stack([v.real, v.imag]).astype(np.float32) for k, v in c.items()}
-    target = _dense_target(gj, tcores, [5])
+    target = targets[1, (5,)]
     t_pair = np.stack([target.real, target.imag]).astype(np.float32)
     kw = dict(momentum=0.9, retraction_prob=0.0)
     ft = make_masked_fidelity_fit(gt, t_pair_sgdg(0.1, **kw), 16, complex_as_real=True,

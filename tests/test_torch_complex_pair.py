@@ -66,6 +66,36 @@ def _jp(cores):
     return {k: jnp.asarray(_pair_np(v)) for k, v in cores.items()}
 
 
+@pytest.fixture(scope="module")
+def brick42():
+    """The 4 x 2 wall in both packages, shared by the file's cases."""
+    return _brick(4, 2)
+
+
+@pytest.fixture(scope="module")
+def sgdg_problem(brick42):
+    """The pair_sgdg cases' cores, target and JAX loss program (one compile
+    for both retraction settings)."""
+    gt, gj = brick42
+    cores, target = _cores(gt, 5), _cores(gt, 6)
+    t_tgt = tcp.make_pair_core_only_fn(gt)(_tp(target))
+    j_tgt, j_fn = jnp.asarray(t_tgt.numpy()), jcp.make_pair_core_only_fn(gj)
+    j_loss = jax.jit(jax.value_and_grad(lambda p: 1.0 - jcp.pair_fidelity(j_fn(p), j_tgt)))
+    return cores, target, t_tgt, j_loss
+
+
+@pytest.fixture(scope="module")
+def dense_fit_problem(brick42):
+    """The dense pair fits' start cores (seed 3), target cores (seed 4) and
+    the planted pair target (core 2 set to its identity)."""
+    gt, _ = brick42
+    cores, target = _cores(gt, 3), _cores(gt, 4)
+    ids = pair_identity_cores(gt)
+    eff = {n: ids[n] if i == 2 else _pair_np(target[n]) for i, n in enumerate(gt.core_names)}
+    t_tgt = tcp.make_pair_core_only_fn(gt)({k: torch.as_tensor(v) for k, v in eff.items()})
+    return cores, target, t_tgt
+
+
 def _close(got, want, rel=1e-4):
     got, want = np.asarray(got), np.asarray(want)
     assert np.abs(got - want).max() <= rel * max(np.abs(want).max(), 1e-30)
@@ -118,8 +148,8 @@ def test_pair_einsum_gradcheck_float64():
 # contractions
 # ---------------------------------------------------------------------------
 
-def test_core_only_matches_jax_and_complex():
-    gt, gj = _brick(4, 2)
+def test_core_only_matches_jax_and_complex(brick42):
+    gt, gj = brick42
     cores = _cores(gt, 0)
     got = tcp.make_pair_core_only_fn(gt)(_tp(cores))
     _close(got.numpy(), np.asarray(jcp.make_pair_core_only_fn(gj)(_jp(cores))))
@@ -173,8 +203,8 @@ def test_pair_log_overlap_matches_jax():
     np.testing.assert_allclose(mt.numpy(), np.asarray(mj), rtol=1e-4, atol=1e-5)
 
 
-def test_pair_trees_and_identities():
-    gt, gj = _brick(4, 2)
+def test_pair_trees_and_identities(brick42):
+    gt, gj = brick42
     cores = _cores(gt, 5)
     pt = tcp.pair_tree(params_from_numpy(cores, "cpu"))
     for k, v in tcp.unpair_tree(pt).items():
@@ -206,19 +236,16 @@ def test_pair_qr_retraction_matches_jax():
 
 
 @pytest.mark.parametrize("retraction_prob", [0.0, 1.0])
-def test_pair_sgdg_matches_jax(retraction_prob):
+def test_pair_sgdg_matches_jax(brick42, sgdg_problem, retraction_prob):
     """Five pair_sgdg steps on a 4 x 2 wall's dense fit loss, the same
     pair gradients fed to both optimizers each step."""
-    gt, gj = _brick(4, 2)
-    cores, target = _cores(gt, 5), _cores(gt, 6)
-    t_tgt = tcp.make_pair_core_only_fn(gt)(_tp(target))
-    j_tgt = jnp.asarray(t_tgt.numpy())
-    t_fn, j_fn = tcp.make_pair_core_only_fn(gt), jcp.make_pair_core_only_fn(gj)
+    gt, _ = brick42
+    cores, _, t_tgt, j_loss = sgdg_problem
+    t_fn = tcp.make_pair_core_only_fn(gt)
     kw = dict(momentum=0.9, stiefel=True, retraction_prob=retraction_prob, seed=7)
     opt_t, opt_j = tps.pair_sgdg(0.05, **kw), jps.pair_sgdg(0.05, **kw)
     pt, pj = _tp(cores), _jp(cores)
     st, sj = opt_t.init(pt), opt_j.init(pj)
-    j_loss = jax.jit(jax.value_and_grad(lambda p: 1.0 - jcp.pair_fidelity(j_fn(p), j_tgt)))
     j_update = jax.jit(opt_j.update)
     for _ in range(5):
         lj, gj_ = j_loss(pj)
@@ -236,11 +263,11 @@ def test_pair_sgdg_matches_jax(retraction_prob):
         _close(pt[k].numpy(), np.asarray(pj[k]))
 
 
-def test_pair_sgdg_matches_complex_sgdg_in_the_port():
+def test_pair_sgdg_matches_complex_sgdg_in_the_port(brick42, sgdg_problem):
     """pair_sgdg on pairs takes the step the port's sgdg takes on complex
     cores (whose torch gradient is conjugated inside sgdg), for 5 steps."""
-    gt, _ = _brick(4, 2)
-    cores, target = _cores(gt, 5), _cores(gt, 6)
+    gt, _ = brick42
+    cores, target, _, _ = sgdg_problem
     c_fn = make_core_only_fn(gt)
 
     c_tgt = c_fn(params_from_numpy(target, "cpu"))
@@ -270,14 +297,11 @@ def test_pair_sgdg_matches_complex_sgdg_in_the_port():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("retraction_prob", [0.0, 1.0])
-def test_pair_dense_fit_matches_jax(retraction_prob):
+def test_pair_dense_fit_matches_jax(brick42, dense_fit_problem, retraction_prob):
     """The 4 x 2 dense fit in pair form, core 2 planted, 60 steps at lr 0.1:
     the same steps and 1 - F as JAX's pair fit."""
-    gt, gj = _brick(4, 2)
-    cores, target = _cores(gt, 3), _cores(gt, 4)
-    ids = pair_identity_cores(gt)
-    eff = {n: ids[n] if i == 2 else _pair_np(target[n]) for i, n in enumerate(gt.core_names)}
-    t_tgt = tcp.make_pair_core_only_fn(gt)({k: torch.as_tensor(v) for k, v in eff.items()})
+    gt, gj = brick42
+    cores, _, t_tgt = dense_fit_problem
     kw = dict(momentum=0.9, retraction_prob=retraction_prob)
     ft = make_masked_fidelity_fit(gt, tps.pair_sgdg(0.1, **kw), 60, complex_as_real=True,
                                   device="cpu")
@@ -291,11 +315,11 @@ def test_pair_dense_fit_matches_jax(retraction_prob):
         _close(rt.params[k].numpy(), np.asarray(rj.params[k]), rel=1e-3)
 
 
-def test_pair_network_fit_matches_jax():
+def test_pair_network_fit_matches_jax(brick42):
     """The 4 x 2 wall in network mode and pair form (the pair executor's
     overlaps), warm from the target with core 4 masked: the same steps and
     1 - F as JAX's."""
-    gt, gj = _brick(4, 2)
+    gt, gj = brick42
     t_np = _cores(gt, 11)
     mask = np.ones(gt.ncores, np.float32)
     tmask = mask.copy()
@@ -313,12 +337,12 @@ def test_pair_network_fit_matches_jax():
     assert r0.steps == 1 and float(r0.infidelity) < 1e-3
 
 
-def test_pair_fit_matches_complex_fit_in_the_port():
+def test_pair_fit_matches_complex_fit_in_the_port(brick42, dense_fit_problem):
     """Within the port, the dense fit in pair form and in complex64 from
     the same cores: the same steps and 1 - F (JAX's
     ``test_pair_fit_matches_complex_fit``, retraction off)."""
-    gt, _ = _brick(4, 2)
-    cores, target = _cores(gt, 3), _cores(gt, 4)
+    gt, _ = brick42
+    cores, target, _ = dense_fit_problem
     c_tgt = contract_cores(gt, params_from_numpy(target, "cpu"))
     mask = torch.ones(gt.ncores)
     fc = make_masked_fidelity_fit(gt, t_sgdg(0.5, momentum=0.9, retraction_prob=0.0), 40,

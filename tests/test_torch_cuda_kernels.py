@@ -363,3 +363,37 @@ def test_lane_axis_counts_in_the_dimension_check(dev):
     assert float(pairwise.einsum(eq, a, b).sum()) == 2.0
     with pytest.raises(ValueError, match="lane axis"):
         vmap(lambda x: pairwise.einsum(eq, x, b))(a.unsqueeze(0).expand(3, *a.shape))
+
+
+def test_chain_sampler_on_the_card_matches_the_host(dev):
+    """``chain_sample`` of a 12-qubit, bond-4 float32 chain on the card and
+    on the host from the same uniforms: the draws agree by JAX's bin-flip
+    rule (a row is identical, or first differs by less than 4 grid bins; at
+    least 3/4 of the rows identical), since the card's cumsum and
+    contractions round in another order."""
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.infer.chain_sampling import _chain_sample_from_uniforms, _draw_uniforms
+    from tneq_tpu_torch.model.qctn import init_params, params_to_numpy, params_from_numpy
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    g = parse_graph(mps_graph(12, dim=4, phys=2))
+    cores = params_to_numpy(init_params(g, 0, torch.float32, device="cpu"))
+    S, G = 64, 200
+    us = _draw_uniforms(torch.Generator(device=dev).manual_seed(1), g.nqubits, S, dev)
+    out = {}
+    for where, u in (("card", us), ("host", us.cpu())):
+        out[where] = _chain_sample_from_uniforms(
+            g, params_from_numpy(cores, u.device),
+            basis_states(g, dtype=torch.float32, device=u.device), 2, u,
+            grid_size=G, dtype=torch.float32).cpu().numpy()
+    a, b = out["card"], out["host"]
+    assert a.shape == (S, 12) and np.isfinite(a).all()
+    bin_w = 10.0 / (G - 1)
+    n_ident = 0
+    for ra, rb in zip(a, b):
+        diff = np.nonzero(ra != rb)[0]
+        if diff.size == 0:
+            n_ident += 1
+            continue
+        assert abs(ra[diff[0]] - rb[diff[0]]) < 4 * bin_w
+    assert n_ident >= S * 3 // 4

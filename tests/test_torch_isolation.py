@@ -36,6 +36,9 @@ assert not bad, bad
 assert "tneq_tpu_torch.ops.row_scan" in names and "tneq_tpu_torch.ops.pairwise" in names
 assert "tneq_tpu_torch.ops.complex_pair" in names
 assert "tneq_tpu_torch.optim.pair_stiefel" in names
+for m in ("infer", "infer.probability", "infer.sampling", "infer.chain_sampling", "engine",
+          "bench.sample_probe", "bench.large_n_probe"):
+    assert "tneq_tpu_torch." + m in names, m
 """
 
 
@@ -67,6 +70,13 @@ def test_entry_points_default_to_the_card():
         assert make_experiment(SymmetryBreakingConfig(fidelity_mode="network")).device.type \
             == "cuda"
         assert all(v.is_cuda for v in QCTN(mps_graph(4, dim=2)).params.values())
+        from tneq_tpu_torch.engine import EngineSiamese
+        from tneq_tpu_torch.infer import sample
+
+        assert EngineSiamese().device.type == "cuda"
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        states = [torch.eye(2, device="cuda")[0]] * 4
+        assert sample(g, p, states, 4, 2, gen, dtype=torch.float32).is_cuda
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(g, 0, torch.float32)
@@ -102,6 +112,25 @@ def test_entry_points_default_to_the_card():
         QCTN(mps_graph(4, dim=2))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["--steps", "1"])
+    # inference: the sampler draws on the params' device, from a generator
+    # there; the facade and the two probes default to the card
+    from tneq_tpu_torch.bench import large_n_probe, sample_probe
+    from tneq_tpu_torch.engine import EngineSiamese
+    from tneq_tpu_torch.infer import sample
+
+    p = init_params(g, 0, torch.float32, device="cpu")
+    states = [torch.eye(2)[0]] * 4
+    with pytest.raises(RuntimeError):
+        sample(g, p, states, 4, 2, torch.Generator(device="cuda"), dtype=torch.float32)
+    assert sample(g, p, states, 4, 2, torch.Generator(), dtype=torch.float32).shape == (4, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        EngineSiamese()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        large_n_probe.fit_and_sample(4, 2, steps=1, samples=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        large_n_probe.main(["--qubits", "4", "--dim", "2", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sample_probe.main(["--qubits", "4"])
 
 
 def test_cpu_on_request():

@@ -40,6 +40,14 @@ def _experiments():
     return je, te
 
 
+@pytest.fixture(scope="module")
+def mps_pair():
+    """The MPS experiments in both packages and the planted target ([2]),
+    shared by the file's MPS cases."""
+    je, te = _experiments()
+    return je, te, _target(te, [2])
+
+
 def _target(te, planted):
     t_np = params_to_numpy(init_params(te.graph, 3, torch.float32, device="cpu"))
     mask = np.ones(te.graph.ncores, np.float32)
@@ -51,8 +59,8 @@ def _jx(p):
     return {k: jnp.asarray(v) for k, v in p.items()}
 
 
-def test_experiment_structure_parity():
-    je, te = _experiments()
+def test_experiment_structure_parity(mps_pair):
+    je, te, _ = mps_pair
     assert te.graph == je.graph or te.graph.signature == je.graph.signature
     assert te.candidate_indices() == je.candidate_indices() == [1, 2, 3]
     assert te.unmaskable == je.unmaskable
@@ -67,10 +75,9 @@ def test_experiment_structure_parity():
         np.testing.assert_array_equal(t_idents[k], np.asarray(j_idents[k]))
 
 
-def test_validate_fit_parity():
+def test_validate_fit_parity(mps_pair):
     """The validation fit from the same numpy start: steps and 1 - F."""
-    je, te = _experiments()
-    t_np, mask = _target(te, [2])
+    je, te, (t_np, mask) = mps_pair
     p_np = params_to_numpy(init_params(te.graph, 4, torch.float32, device="cpu"))
     rj = je.run_fit(je.validate_fit, _jx(p_np), je.mask_vector([]),
                     (_jx(t_np), jnp.asarray(mask)))
@@ -80,9 +87,8 @@ def test_validate_fit_parity():
     np.testing.assert_allclose(float(rt.infidelity), float(rj.infidelity), rtol=1e-4, atol=1e-6)
 
 
-def test_prune_loop_parity():
-    je, te = _experiments()
-    t_np, mask = _target(te, [2])
+def test_prune_loop_parity(mps_pair):
+    je, te, (t_np, mask) = mps_pair
     rng = np.random.default_rng(0)
     warm = {k: (v + 0.02 * rng.standard_normal(v.shape)).astype(np.float32)
             for k, v in t_np.items()}
@@ -95,8 +101,8 @@ def test_prune_loop_parity():
     assert at == aj == 5
 
 
-def test_target_tensor_init_network_mode():
-    _, te = _experiments()
+def test_target_tensor_init_network_mode(mps_pair):
+    _, te, _ = mps_pair
     t_params, t_mask = ts.target_tensor_init(te, [2], 0)
     assert set(t_params) == set(te.graph.core_names)
     assert t_mask.tolist() == [1.0, 1.0, 0.0, 1.0, 1.0]
@@ -177,21 +183,24 @@ def test_brick_experiment_structure_parity():
     assert te.validate_fit.scope == te.prune_fit.scope == "fit"
 
 
-def test_brick_target_tensor_init_matches_jax():
-    g = ts.make_experiment(ts.SymmetryBreakingConfig(device="cpu", **BRICK)).graph
-    cores = params_to_numpy(init_params(g, 3, torch.complex64, device="cpu"))
+@pytest.fixture(scope="module")
+def brick_pair():
+    """The dense brick experiments from the seed-3 cores and JAX's planted
+    target ([5]), shared by the target and the prune-loop cases."""
+    cores = _brick_cores(3)
     je, te = _brick(cores)
+    return je, te, cores, np.array(js.target_tensor_init(je, [5], jax.random.PRNGKey(0)))
+
+
+def test_brick_target_tensor_init_matches_jax(brick_pair):
+    je, te, _, jt = brick_pair
     tt = ts.target_tensor_init(te, [5], 0)
-    jt = np.asarray(js.target_tensor_init(je, [5], jax.random.PRNGKey(0)))
     assert tt.shape == jt.shape == (2,) * 8 and not tt.requires_grad
     assert np.abs(tt.numpy() - jt).max() <= 1e-5 * np.abs(jt).max()
 
 
-def test_brick_prune_loop_parity():
-    g = ts.make_experiment(ts.SymmetryBreakingConfig(device="cpu", **BRICK)).graph
-    cores = params_to_numpy(init_params(g, 3, torch.complex64, device="cpu"))
-    je, te = _brick(cores)
-    target = np.array(js.target_tensor_init(je, [5], jax.random.PRNGKey(0)))
+def test_brick_prune_loop_parity(brick_pair):
+    je, te, cores, target = brick_pair
     rng = np.random.default_rng(0)
     warm = {k: _on_manifold(v + 0.05 * (rng.standard_normal(v.shape)
                                         + 1j * rng.standard_normal(v.shape)))
@@ -247,14 +256,13 @@ def test_brick_network_validate_parity():
     mask = np.ones(6, np.float32)
     mask[5] = 0.0
     rj = je.run_fit(je.validate_fit, _jx(p_np), je.mask_vector([]), (_jx(t_np), jnp.asarray(mask)))
-    rt = te.run_fit(te.validate_fit, params_from_numpy(p_np, "cpu"), te.mask_vector([]),
-                    (params_from_numpy(t_np, "cpu"), torch.as_tensor(mask)))
-    assert int(rt.steps) == int(rj.steps) == 81
-    np.testing.assert_allclose(float(rt.infidelity), float(rj.infidelity), rtol=1e-4, atol=1e-6)
-    # the validation entry point draws its fresh cores and returns them
+    # the validation entry point draws its fresh cores (p_np), runs the
+    # validate fit once and returns the fitted cores
     ok, fid, steps, fitted = ts.validate_target_tensor(
         te, (params_from_numpy(t_np, "cpu"), torch.as_tensor(mask)), 0, return_params=True)
-    assert ok and steps == 81 and set(fitted) == set(te.graph.core_names)
+    assert steps == int(rj.steps) == 81
+    np.testing.assert_allclose(1.0 - fid, float(rj.infidelity), rtol=1e-4, atol=1e-6)
+    assert ok and set(fitted) == set(te.graph.core_names)
 
 
 def test_brick_network_prune_loop_parity():
