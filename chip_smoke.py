@@ -107,7 +107,23 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    pairwise step.  (c) ``full_probability`` (pairwise einsum) against
    ``Trainer.probability`` (one B3 launch) on the born_rule cell, and log
    P at 30 qubits (cores x16), finite on the card where P is not, against
-   the host's.
+   the host's;
+12. structure_search — the genetic structure search (no kernel of the
+   port: every contraction is pairwise ``torch.einsum`` steps), one JSON
+   line per part.  (a) ``apps.structure_search`` at its defaults (4-qubit
+   full connection, population 8, 3 generations, 2 repeats as lanes, 100
+   adam steps, ``overlap_mse``): every loss finite; the same search on a
+   1-worker ``DeviceFarm`` on cuda:0, and one killed in generation 1 and
+   resumed from its checkpoint, give the serial run's populations, losses
+   within ``TOL_GA_FARM``.  (b) ``GA_r03.json``'s 30-qubit log-fidelity
+   search (``mps_graph(30, dim=2)``, population 6, 2 repeats, elitism 1),
+   cut to ``GA30_GENERATIONS`` generations of ``GA30_STEPS`` fit steps:
+   finite losses, a best fitness that never rises; seconds per evaluation
+   cold (a topology new to the chunk cache) and warm, the 2-lane chunk's
+   fit steps/s, launches, idle share and largest pairwise step (with its
+   lane axis) of one of its steps, peak memory; the last candidate's
+   −log F at the card's cores against the host's.  (c) ``apps.merge_split_demo`` on the
+   card: the cores are carried through split and merge.
 
 Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
@@ -121,6 +137,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 
@@ -238,6 +255,23 @@ FLIP_BINS = 4
 # (c) full_probability (pairwise einsum) against Trainer.probability (B3)
 # on the born_rule cell; log P at 30 qubits, cores x16, card vs host in log
 TOL_LOG30 = 1e-3
+
+# the structure-search phase (12).  (a) apps.structure_search at its
+# defaults, serial, on a 1-worker DeviceFarm, and killed at its
+# GA_CRASH_AT-th evaluation (generation 1: generation 0 has 8) and resumed:
+# the same populations, losses within TOL_GA_FARM (the same device and
+# seeds: expected bit for bit)
+GA_SEED = 0
+GA_CRASH_AT = 11
+TOL_GA_FARM = 1e-5
+# (b) GA_r03.json's 30-qubit log-fidelity search (docs/ROUND3.md), cut in
+# depth to keep the part near 90 s: 2 of its 5 generations, 30 of its 300
+# fit steps per candidate; a lane's -log F at the card's cores, card vs
+# host, within TOL_GA30 of max(1, |-log F|) (a sum of 29 float32 log-scales)
+GA30_QUBITS = 30
+GA30_GENERATIONS = 2
+GA30_STEPS = 30
+TOL_GA30 = 1e-4
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -1901,6 +1935,302 @@ def phase_probability_checks(smi: str) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the structure search
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def _recorded_evaluations():
+    """Every ``CandidateEvaluator.evaluate`` call in the block (farm clones
+    too): seconds, losses, and whether its topology was new to the chunk
+    cache ("cold")."""
+    from tneq_tpu_torch.genetic import CandidateEvaluator
+    from tneq_tpu_torch.graph import parse_graph
+
+    calls, evaluate = [], CandidateEvaluator.evaluate
+
+    def recording(self, graph_string, seed, repeats=1):
+        cold = parse_graph(graph_string).signature not in self._cache
+        t0 = time.perf_counter()
+        out = evaluate(self, graph_string, seed, repeats)
+        calls.append({"graph": graph_string, "cold": cold, "losses": out[0].tolist(),
+                      "seconds": time.perf_counter() - t0})
+        return out
+
+    CandidateEvaluator.evaluate = recording
+    try:
+        yield calls
+    finally:
+        CandidateEvaluator.evaluate = evaluate
+
+
+def _population(ckpt: str) -> list:
+    """(scope, graph, losses) of the last generation in a search checkpoint."""
+    with open(ckpt) as f:
+        state = json.load(f)
+    return [(m["scope"], m["graph"], m["losses"])
+            for members in state["generation"]["societies"].values() for m in members]
+
+
+def _same_population(a: list, b: list, tol: float) -> float:
+    """The largest loss difference of two populations with the same scopes
+    and graphs (fails otherwise)."""
+    check([x[:2] for x in a] == [x[:2] for x in b],
+          f"structure search: populations differ: {[x[:2] for x in a]} vs {[x[:2] for x in b]}")
+    worst = 0.0
+    for (_, _, la), (_, _, lb) in zip(a, b):
+        check(len(la) == len(lb), f"structure search: loss counts {la} vs {lb}")
+        for x, y in zip(la, lb):
+            worst = max(worst, abs(x - y) / max(1.0, abs(y)))
+    check(worst <= tol, f"structure search: losses differ by {worst} > {tol}")
+    return worst
+
+
+def _eval_seconds(calls: list) -> dict:
+    cold = [c["seconds"] for c in calls if c["cold"]]
+    warm = [c["seconds"] for c in calls if not c["cold"]]
+    return {"evaluations": len(calls), "cold": len(cold), "warm": len(warm),
+            "cold_s_mean": sum(cold) / len(cold) if cold else None,
+            "warm_s_mean": sum(warm) / len(warm) if warm else None}
+
+
+def phase_ga_cli(smi: str, tmp: str) -> dict:
+    """Phase 12 (a): the structure-search CLI at its defaults on the card,
+    serial; farmed over a 1-worker DeviceFarm on cuda:0; killed in
+    generation 1 and resumed from its checkpoint."""
+    import random
+
+    import numpy as np
+
+    from tneq_tpu_torch.apps import structure_search
+    from tneq_tpu_torch.genetic import EvolutionSearch
+
+    t_phase = time.perf_counter()
+    runs = {}
+    for name, extra in (("serial", []), ("farm", ["--devices", "1"])):
+        ckpt = f"{tmp}/ga_{name}.json"
+        random.seed(GA_SEED)  # society names come from Python's random, as in JAX
+        t0 = time.perf_counter()
+        with _recorded_evaluations() as calls, contextlib.redirect_stdout(sys.stderr):
+            res = structure_search.main(["--checkpoint", ckpt])
+        runs[name] = {"result": res, "calls": calls, "population": _population(ckpt),
+                      "seconds": time.perf_counter() - t0}
+        losses = [x for c in calls for x in c["losses"]]
+        check(bool(np.isfinite(losses).all()) and len(losses) == 2 * len(calls),
+              f"structure search ({name}): non-finite losses {losses}")
+    serial, farm = runs["serial"], runs["farm"]
+    check(farm["result"]["scope"] == serial["result"]["scope"]
+          and farm["result"]["graph"] == serial["result"]["graph"],
+          "structure search: the farm's best differs from the serial run's")
+    check([h["best_scope"] for h in farm["result"]["history"]]
+          == [h["best_scope"] for h in serial["result"]["history"]],
+          "structure search: the farm's history differs from the serial run's")
+    farm_err = _same_population(farm["population"], serial["population"], TOL_GA_FARM)
+
+    # killed during generation 1, resumed from the checkpoint of its boundary
+    ckpt = f"{tmp}/ga_resume.json"
+    random.seed(GA_SEED)
+    with contextlib.redirect_stdout(sys.stderr):
+        _, evaluator, kw = structure_search.build(["--checkpoint", ckpt])
+    evaluate, n_calls = evaluator.evaluate, [0]
+
+    def flaky(graph_string, seed, repeats=1):
+        n_calls[0] += 1
+        if n_calls[0] == GA_CRASH_AT:
+            raise RuntimeError("simulated crash")
+        return evaluate(graph_string, seed, repeats)
+
+    evaluator.evaluate = flaky
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        try:
+            EvolutionSearch(evaluator, checkpoint_path=ckpt, max_abnormal=0, **kw).run()
+            crashed = False
+        except RuntimeError:
+            crashed = True
+        check(crashed, "structure search: the crash run did not stop")
+        with open(ckpt) as f:
+            resumed_at = json.load(f)["generation_index"]
+        _, evaluator, kw = structure_search.build(["--checkpoint", ckpt])
+        best = EvolutionSearch.resume(ckpt, evaluator, **kw).run()
+    check(resumed_at == 1, f"structure search: resumed at generation {resumed_at}, expected 1")
+    check(best.scope == serial["result"]["scope"]
+          and best.graph.to_dsl() == serial["result"]["graph"],
+          "structure search: the resumed run's best differs from the uninterrupted run's")
+    resume_err = _same_population(_population(ckpt), serial["population"], TOL_GA_FARM)
+    hist = serial["result"]["history"]
+    rec = {"phase": "structure_search", "part": "a_cli",
+           "program": "apps.structure_search at its defaults: full connection of 4 qubits, "
+                      "rank 2, population 8, 3 generations, repeat 2, top-k 3 x 2, 100 adam "
+                      "steps (lr 5e-2) in chunks of 10, overlap_mse, float32, seed 0",
+           "best": {k: serial["result"][k] for k in ("scope", "fitness", "sparsity", "losses")},
+           "best_fitness_per_generation": [h["best_fitness"] for h in hist],
+           "evaluations_per_generation": [h["evaluations"] for h in hist],
+           "serial": {"seconds": serial["seconds"], **_eval_seconds(serial["calls"])},
+           "farm_1_worker": {"seconds": farm["seconds"], **_eval_seconds(farm["calls"]),
+                             "max_loss_diff": farm_err},
+           "resume": {"crashed_at_evaluation": GA_CRASH_AT, "resumed_at_generation": resumed_at,
+                      "seconds": time.perf_counter() - t0, "max_loss_diff": resume_err},
+           "tolerance": TOL_GA_FARM, "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(rec)
+    return rec
+
+
+def phase_ga30(smi: str) -> dict:
+    """Phase 12 (b): GA_r03.json's 30-qubit log-fidelity search, cut in
+    depth; then one evaluation's chunk measured alone and its last cores
+    re-evaluated on the host."""
+    import random
+
+    import numpy as np
+    import torch
+    from torch.utils._pytree import tree_map
+
+    from tneq_tpu_torch.apps import structure_search
+    from tneq_tpu_torch.genetic import CandidateEvaluator, EvolutionSearch
+    from tneq_tpu_torch.genetic.evaluator import _lanes
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params
+    from tneq_tpu_torch.ops import chain_overlap as co
+    from tneq_tpu_torch.ops import pairwise as pw
+    from tneq_tpu_torch.ops import transfer_step as ts
+
+    t_phase = time.perf_counter()
+    mps = mps_graph(GA30_QUBITS, dim=2)
+    argv = [f"--goal-graph={mps}", f"--template-graph={mps}", "--tn-size", str(GA30_QUBITS),
+            "--loss", "log_fidelity", "--population", "6", "--evaluate-repeat", "2",
+            "--elitism", "1", "--generations", str(GA30_GENERATIONS),
+            "--train-steps", str(GA30_STEPS)]
+    random.seed(GA_SEED)
+    co.reset_launch_counts()
+    ts.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _recorded_evaluations() as calls, contextlib.redirect_stdout(sys.stderr):
+        _, ev, kw = structure_search.build(argv)
+        search = EvolutionSearch(ev, **kw)
+        best = search.run()
+    search_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    kernel_launches = {**co.launch_counts(), **ts.launch_counts()}
+    losses = [x for c in calls for x in c["losses"]]
+    check(bool(np.isfinite(losses).all()), f"30q search: non-finite losses {losses}")
+    bests = [h["best_fitness"] for h in search.history]
+    check(all(b <= a for a, b in zip(bests, bests[1:])),
+          f"30q search: best fitness rose between generations: {bests}")
+
+    # the last evaluated candidate: one evaluation again, its chunk alone
+    last = calls[-1]["graph"]
+    graph = parse_graph(last)
+    gen = torch.Generator().manual_seed(GA_SEED)
+    starts = [init_params(graph, gen, torch.float32, device="cpu") for _ in range(2)]
+    params0 = {k: torch.stack([s[k] for s in starts]).cuda() for k in graph.core_names}
+    params_b, card_losses, _, _ = ev._fit(last, params0)
+    host = ev.clone("cpu")
+    card_l, host_l = [], []
+    for i in range(2):
+        lane = {k: v[i] for k, v in params_b.items()}
+        card_l.append(float(ev._loss_fn(graph)(lane, ev._goal())[0]))
+        host_l.append(float(host._loss_fn(graph)({k: v.cpu() for k, v in lane.items()},
+                                                 host._goal())[0]))
+    host_err = max(abs(c - h) / max(1.0, abs(h)) for c, h in zip(card_l, host_l))
+    check(host_err <= TOL_GA30, f"30q search: -log F card {card_l} vs host {host_l}")
+
+    run, optimizer = ev._chunk_fn(graph)
+    state = tree_map(lambda x: _lanes(x, 2),
+                     optimizer.init({k: v[0] for k, v in params0.items()}))
+    goal = ev._goal()
+
+    def chunk():
+        return run(params0, state, goal)
+
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        chunk()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    chunk_s = sorted(times)[1]
+    # one step of the same fit, as a 1-step chunk: the profiler's trace of
+    # a 10-step chunk (~18,000 launches) takes tens of seconds to read
+    one = CandidateEvaluator(ev.goal_graph, ev.goal_params, n_iter=1, method=ev.method,
+                             learning_rate=ev.learning_rate, dtype=ev.dtype, loss=ev.loss)
+    step_run, _ = one._chunk_fn(graph)
+
+    def step():
+        return step_run(params0, state, goal)
+
+    prof = _profile_steps(step, chunk_s * 1e3 / ev.n_iter, steps=1)
+    ranks, einsum = [], pw.einsum
+
+    def recording(eq, *ops):
+        ranks.append((pw._lettered(eq)[1], max(pw._vmap_dims(o) for o in ops)))
+        return einsum(eq, *ops)
+
+    pw.einsum = recording
+    try:
+        step()
+    finally:
+        pw.einsum = einsum
+    largest = max(ranks, key=lambda r: sum(r))
+    rec = {"phase": "structure_search", "part": "b_30q",
+           "program": f"GA_r03.json's search: goal and template mps_graph({GA30_QUBITS}, dim=2), "
+                      "goal cores from seed 0, loss log_fidelity, adam lr 5e-2, population 6, "
+                      "repeat 2 (2 lanes), top-k 3 x 2, elitism 1, float32; reduced: "
+                      f"{GA30_GENERATIONS} generations (5), {GA30_STEPS} fit steps per "
+                      "candidate (300) in chunks of 10",
+           "best": {"scope": best.scope, "fitness": best.fitness_score,
+                    "losses": best.report_loss},
+           "best_fitness_per_generation": bests,
+           "evaluations_per_generation": [h["evaluations"] for h in search.history],
+           "search_seconds": search_s, **_eval_seconds(calls),
+           "kernel_launches": kernel_launches,
+           "peak_memory_bytes": peak,
+           "chunk": {"steps": ev.n_iter, "lanes": 2, "seconds": chunk_s,
+                     "fit_steps_per_s": ev.n_iter / chunk_s,
+                     "lane_steps_per_s": 2 * ev.n_iter / chunk_s,
+                     "launches_per_step": prof["kernel_launches_per_step"],
+                     "device_busy_ms_per_step": prof["device_busy_ms_per_step"],
+                     "device_idle_share": prof["device_idle_share"],
+                     "top_kernels_ms_per_step": prof["top_kernels_ms_per_step"],
+                     "forward_pairwise_einsums_per_step": len(ranks),
+                     "largest_pairwise_step": {"axes": largest[0], "lane_axes": largest[1],
+                                               "cuda_dims": sum(largest),
+                                               "cuda_max_dims": pw.CUDA_MAX_DIMS}},
+           "host_check": {"candidate_cores": graph.ncores, "card": card_l, "host": host_l,
+                          "card_chunk_losses": card_losses.tolist(),
+                          "max_err": host_err, "tolerance": TOL_GA30},
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(rec)
+    return rec
+
+
+def phase_merge_split(smi: str) -> dict:
+    """Phase 12 (c): apps.merge_split_demo on the card."""
+    import io
+
+    from tneq_tpu_torch.apps import merge_split_demo
+
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = merge_split_demo.main(["--graph-types", "mps", "tree", "wall"])
+    text = out.getvalue()
+    check(rc == 0 and text.count("(carried)") == 2 and "MISMATCH" not in text,
+          f"merge_split_demo: rc {rc}\n{text}")
+    rec = {"phase": "structure_search", "part": "c_merge_split",
+           "program": "apps.merge_split_demo: 6 qubits, dim 3, mps / tree / wall, split at the "
+                      "middle core and merged back, cores on cuda",
+           "fingerprints": [line.split(": ", 1)[1] for line in text.splitlines()
+                            if line.startswith("weight fingerprint")],
+           "split_refused": [line for line in text.splitlines() if "split not possible" in line],
+           "seconds": time.perf_counter() - t0, "card": smi}
+    emit(rec)
+    return rec
+
+
 def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                  batched: list, large_n: dict, prob: dict) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
@@ -2017,6 +2347,10 @@ def main() -> int:
         large_n = phase_large_n(setup["nvidia_smi"])
         phase_engine(setup["nvidia_smi"])
         prob = phase_probability_checks(setup["nvidia_smi"])
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            phase_ga_cli(setup["nvidia_smi"], tmp)
+        phase_ga30(setup["nvidia_smi"])
+        phase_merge_split(setup["nvidia_smi"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1

@@ -39,6 +39,10 @@ assert "tneq_tpu_torch.optim.pair_stiefel" in names
 for m in ("infer", "infer.probability", "infer.sampling", "infer.chain_sampling", "engine",
           "bench.sample_probe", "bench.large_n_probe"):
     assert "tneq_tpu_torch." + m in names, m
+for m in ("graph.mutable", "graph.surgery", "genetic", "genetic.codes", "genetic.individual",
+          "genetic.generation", "genetic.evaluator", "genetic.farm", "genetic.search",
+          "apps.structure_search", "apps.merge_split_demo"):
+    assert "tneq_tpu_torch." + m in names, m
 """
 
 
@@ -77,6 +81,11 @@ def test_entry_points_default_to_the_card():
         gen = torch.Generator(device="cuda").manual_seed(0)
         states = [torch.eye(2, device="cuda")[0]] * 4
         assert sample(g, p, states, 4, 2, gen, dtype=torch.float32).is_cuda
+        from tneq_tpu_torch.genetic import CandidateEvaluator, DeviceFarm
+
+        farm = DeviceFarm(CandidateEvaluator(g, p))
+        assert [d.type for d in farm.devices] == ["cuda"] * torch.cuda.device_count()
+        farm.shutdown()
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(g, 0, torch.float32)
@@ -131,6 +140,17 @@ def test_entry_points_default_to_the_card():
         large_n_probe.main(["--qubits", "4", "--dim", "2", "--steps", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sample_probe.main(["--qubits", "4"])
+    # the structure search: the farm's default devices, the CLI and the
+    # merge/split demo
+    from tneq_tpu_torch.apps import merge_split_demo, structure_search
+    from tneq_tpu_torch.genetic import CandidateEvaluator, DeviceFarm
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceFarm(CandidateEvaluator(g, p))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        structure_search.main(["--tn-size", "3", "--generations", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        merge_split_demo.main([])
 
 
 def test_cpu_on_request():

@@ -9,6 +9,8 @@ from .generators import (
     build_brick_wall_incidence,
     incidence_to_graph,
 )
+from .surgery import split_graph, merge_graphs
+from .mutable import MutableGraph
 
 __all__ = [
     "CircuitGraph",
@@ -25,4 +27,7 @@ __all__ = [
     "example_graph",
     "build_brick_wall_incidence",
     "incidence_to_graph",
+    "split_graph",
+    "merge_graphs",
+    "MutableGraph",
 ]

@@ -22,7 +22,8 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from ..graph.dsl import CircuitGraph, parse_graph
+from ..graph.dsl import CircuitGraph, parse_graph, render_dsl
+from ..graph.surgery import merge_graphs, split_graph
 from ..ops.contract import (
     contract_cores,
     make_two_network_fn,
@@ -127,9 +128,10 @@ class QCTN:
 
     Counterpart of the JAX ``QCTN``: JAX's ``key=`` becomes an integer
     ``seed`` (drawn with :func:`init_params`), plus ``device=``.  The
-    contraction conveniences run through ``ops/contract.py``; the surgery
-    methods (``split``, ``merge_with``) wait for ``graph/surgery.py``
-    (ROADMAP A, item 10).
+    contraction conveniences run through ``ops/contract.py``, the surgery
+    methods (``split``, ``merge_with``, ``merge``) through
+    ``graph/surgery.py``; their halves and merges live on this model's
+    device and carry its cores unchanged.
     """
 
     def __init__(
@@ -243,3 +245,33 @@ class QCTN:
 
     def load_cores(self, file_path, strict: bool = True):
         raise NotImplementedError(_CHECKPOINTS)
+
+    # -- surgery --------------------------------------------------------------
+
+    def split(self, split_idx: Optional[int] = None):
+        """Split into two QCTNs at core index (weights carried over)."""
+        src1, src2 = split_graph(self._render(), split_idx)
+        halves = (QCTN(src1, dtype=self.dtype, device=self.device),
+                  QCTN(src2, dtype=self.dtype, device=self.device))
+        for q in halves:
+            for name in q.cores:
+                if name in self.params:
+                    q.params[name] = self.params[name]
+        return halves
+
+    def merge_with(self, other: "QCTN") -> "QCTN":
+        """Left-right merge; cores renamed contiguously, weights carried."""
+        merged_src, map1, map2 = merge_graphs(self._render(), other._render())
+        out = QCTN(merged_src, dtype=self.dtype, device=self.device)
+        for src, mapping in ((self, map1), (other, map2)):
+            for old, new in mapping.items():
+                if old in src.params:
+                    out.params[new] = src.params[old]
+        return out
+
+    @staticmethod
+    def merge(q1: "QCTN", q2: "QCTN") -> "QCTN":
+        return q1.merge_with(q2)
+
+    def _render(self) -> str:
+        return self.graph.source or render_dsl(self.graph)

@@ -19,6 +19,7 @@ import functools
 import hashlib
 import os
 import subprocess
+import threading
 from pathlib import Path
 
 __all__ = ["CXX", "CXX_FLAGS", "build", "load_library"]
@@ -27,6 +28,7 @@ _SRC = Path(__file__).resolve().parent / "pathfinder.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+_BUILD_LOCK = threading.Lock()  # threads of one process build one at a time
 
 
 def _target() -> Path:
@@ -40,28 +42,29 @@ def build(cxx: str = CXX) -> Path:
     """Compile ``pathfinder.cpp`` unless it is built already; returns the
     path of the shared library.  Raises ``RuntimeError`` with the compiler's
     output if the build fails."""
-    out = _target()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    try:
+    with _BUILD_LOCK:
+        out = _target()
+        if out.exists():
+            return out
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         try:
-            proc = subprocess.run(
-                [cxx, *CXX_FLAGS, str(_SRC), "-o", str(tmp)],
-                capture_output=True, text=True, timeout=300,
-            )
-        except OSError as e:
-            raise RuntimeError(
-                f"cannot run the C++ compiler {cxx!r} for {_SRC.name}: {e}") from e
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"{cxx} failed for {_SRC.name} (rc {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders race harmlessly
-    finally:
-        tmp.unlink(missing_ok=True)
+            try:
+                proc = subprocess.run(
+                    [cxx, *CXX_FLAGS, str(_SRC), "-o", str(tmp)],
+                    capture_output=True, text=True, timeout=300,
+                )
+            except OSError as e:
+                raise RuntimeError(
+                    f"cannot run the C++ compiler {cxx!r} for {_SRC.name}: {e}") from e
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"{cxx} failed for {_SRC.name} (rc {proc.returncode}):\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            os.replace(tmp, out)  # atomic: concurrent processes race harmlessly
+        finally:
+            tmp.unlink(missing_ok=True)
     return out
 
 

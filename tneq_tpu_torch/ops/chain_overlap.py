@@ -38,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 from typing import Dict, Tuple
 
 import torch
@@ -71,16 +72,24 @@ BAR_FLOATS = 8  # the mbarriers at the head of shared memory (kBarFloats)
 
 # launches of each kernel, counted by the wrappers where they launch
 _LAUNCHES: Dict[str, int] = {"chain_sweep_fwd": 0, "chain_sweep_bwd": 0}
+_LAUNCH_LOCK = threading.Lock()  # farm workers launch from several threads
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in _LAUNCHES:
+            _LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCH_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def chain_pair_to_mv(a, b):
@@ -311,7 +320,7 @@ def _sweep_fwd_cuda(u0, M, w):
     )
     if err != 0:
         raise RuntimeError(f"chain_sweep_fwd (B1) launch failed: CUDA error {err}")
-    _LAUNCHES["chain_sweep_fwd"] += 1
+    _count_launch("chain_sweep_fwd")
     return ustack, scales, f, logsum, ulast
 
 
@@ -334,7 +343,7 @@ def _sweep_bwd_cuda(r0, M, ustack, scales):
     )
     if err != 0:
         raise RuntimeError(f"chain_sweep_bwd (B2) launch failed: CUDA error {err}")
-    _LAUNCHES["chain_sweep_bwd"] += 1
+    _count_launch("chain_sweep_bwd")
     return dM, du0
 
 

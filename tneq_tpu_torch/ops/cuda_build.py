@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -31,6 +32,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers / shared memory / spills into the build log
 )
+_BUILD_LOCK = threading.Lock()  # threads of one process build one at a time
 
 
 def _nvcc() -> str:
@@ -60,35 +62,36 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     source started together; returns ``{name: path to the .so}``.  Raises
     with the compiler's output if any build fails."""
     names = tuple(names)
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    running = {}
-    try:
-        for name in names:
-            out = _target(name)
-            if out.exists():
-                continue
-            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-            proc = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-            )
-            running[name] = (proc, tmp, out)
-        failed = []
-        for name, (proc, tmp, out) in running.items():
-            text, _ = proc.communicate()
-            out.with_suffix(".log").write_text(text)
-            if proc.returncode != 0:
-                failed.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{text}")
-            else:
-                os.replace(tmp, out)
-        if failed:
-            raise RuntimeError("\n".join(failed))
-    finally:
-        for proc, tmp, _ in running.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            tmp.unlink(missing_ok=True)
+    with _BUILD_LOCK:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        running = {}
+        try:
+            for name in names:
+                out = _target(name)
+                if out.exists():
+                    continue
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+                cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+                proc = subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+                )
+                running[name] = (proc, tmp, out)
+            failed = []
+            for name, (proc, tmp, out) in running.items():
+                text, _ = proc.communicate()
+                out.with_suffix(".log").write_text(text)
+                if proc.returncode != 0:
+                    failed.append(f"nvcc failed for {name} (rc {proc.returncode}):\n{text}")
+                else:
+                    os.replace(tmp, out)
+            if failed:
+                raise RuntimeError("\n".join(failed))
+        finally:
+            for proc, tmp, _ in running.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                tmp.unlink(missing_ok=True)
     return {name: _target(name) for name in names}
 
 

@@ -40,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Dict, NamedTuple
 
 import torch
@@ -71,16 +72,24 @@ MIN_STRIP = 8  # narrower strips leave a block's tiles half empty: fewer entries
 
 # launches of the sweep kernel, by dtype, counted by the wrapper where it launches
 _LAUNCHES: Dict[str, int] = {"transfer_step": 0, "transfer_step_complex": 0}
+_LAUNCH_LOCK = threading.Lock()  # farm workers launch from several threads
 
 
 def launch_counts() -> Dict[str, int]:
     """Kernel launches since the last :func:`reset_launch_counts`."""
-    return dict(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    with _LAUNCH_LOCK:
+        for k in _LAUNCHES:
+            _LAUNCHES[k] = 0
+
+
+def _count_launch(name: str) -> None:
+    with _LAUNCH_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def kernel_supported(dtype: torch.dtype) -> bool:
@@ -266,7 +275,7 @@ def _launch(env0, a, mx, complex_: bool, backward: bool = False) -> torch.Tensor
     name = "transfer_step_complex" if complex_ else "transfer_step"
     if err != 0:
         raise RuntimeError(f"{name} ({'B4' if complex_ else 'B3'}) launch failed: CUDA error {err}")
-    _LAUNCHES[name] += 1
+    _count_launch(name)
     return out
 
 
