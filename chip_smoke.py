@@ -123,10 +123,28 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    fit steps/s, launches, idle share and largest pairwise step (with its
    lane axis) of one of its steps, peak memory; the last candidate's
    −log F at the card's cores against the host's.  (c) ``apps.merge_split_demo`` on the
-   card: the cores are carried through split and merge.
+   card: the cores are carried through split and merge;
+13. sliced — bond-sliced overlaps over a ``model`` mesh axis on one card
+   and checkpoints, one JSON line per part.  (a) Phase 9 (b)'s flagship
+   with ``make_mesh({"model": 2}, devices=["cuda:0"] * 2)``: −log F at
+   its fresh cores against the unsliced row sweep (``TOL_LANE``), one
+   log-overlap's gradient against the unsliced one, 10 fit steps (steps/s,
+   launches per step, idle share, peak memory beside phase 9 (b)'s), B1/B2
+   never launched (the sliced fit turns the chain route off), and one step
+   at 4 positions (two bonds).  (b) Two gloo ranks spawned on cuda:0, one
+   per position: the sliced log-overlap value as (a)'s within float32
+   rounding, each rank's summed gradient as the one-process gradient, 3 fit
+   steps with bit-equal replicas.  (c) ``EngineSiamese(mesh=...)`` at the
+   README Quick start's width against ``mesh=None``, and the sliced CLI
+   (``--slice-devices 2``) at 4 x 2 on card and host.  (d)
+   ``train_single_node --save`` at its defaults (B4 = 2 launches per
+   step), the file read back by ``QCTN.from_pretrained`` on the card bit
+   for bit, and the cli cell's ``Trainer`` resumed from a
+   ``CheckpointManager`` continuing the uninterrupted run's losses.
 
-Then the ``kernels`` summary line, the ``nvidia-smi`` line, and as the last
-line ``{"ok": true, "device": {...}}``.  Any failed check exits non-zero
+Then a ``timing`` line (seconds per phase), the ``kernels`` summary line,
+the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
+{...}}``.  Any failed check exits non-zero
 before the last line.  Without a CUDA device the script exits non-zero.
 """
 
@@ -272,6 +290,28 @@ GA30_QUBITS = 30
 GA30_GENERATIONS = 2
 GA30_STEPS = 30
 TOL_GA30 = 1e-4
+
+# the sliced phase (13): the flagship bond-sliced over a model axis on one
+# card.  (a) -log F at the same cores, sliced vs the unsliced row sweep,
+# within TOL_LANE of max(1, |-log F|); one log-overlap's gradient within
+# TOL_SLICED_GRAD (max-abs-normalised); SLICED_STEPS fit steps timed; one
+# step at SLICED_WIDE positions.  (b) two gloo ranks on cuda:0: the value
+# within float32 rounding (TOL_RANK_VALUE of max(1, |value|)), each rank's
+# summed gradient within TOL_RANK_GRAD of the one-process gradient,
+# RANK_STEPS fit steps with bit-equal replicas.  (c) the engine with a mesh
+# against mesh=None (TOL_INFER) and the sliced CLI at 4 x 2, card vs host.
+# (d) train_single_node --save at its defaults; a Trainer resumed from a
+# CheckpointManager continues the uninterrupted run's losses within
+# TOL_RESUME (relative)
+SLICED_POSITIONS = 2
+SLICED_WIDE = 4
+SLICED_STEPS = 10
+TOL_SLICED_GRAD = 1e-4
+RANK_STEPS = 3
+TOL_RANK_VALUE = 1e-6
+TOL_RANK_GRAD = 1e-5
+RESUME_STEPS = 3
+TOL_RESUME = 1e-5
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -929,20 +969,29 @@ def phase_cli(smi: str) -> dict:
 
 def _cli_pair(extra) -> dict:
     """The experiment's CLI in a process of its own, on the card and on the
-    host: the ``best: pruned`` line of each, and the card's seconds."""
+    host, both at once: the ``best: pruned`` line of each, and the card's
+    seconds."""
     cli = [sys.executable, "-m", "tneq_tpu_torch.apps.symmetry_breaking", *extra]
     best, seconds = {}, None
-    for where in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        out = subprocess.run(cli + ["--device", where], capture_output=True, text=True,
-                             timeout=400)
-        if where == "cuda":
-            seconds = time.perf_counter() - t0
-        print(out.stdout, out.stderr, sep="\n", file=sys.stderr, flush=True)
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith("best: pruned ")]
-        check(out.returncode == 0 and len(lines) == 1,
-              f"the CLI {extra} on {where} exited {out.returncode}")
-        best[where] = lines[0]
+    t0 = time.perf_counter()
+    procs = {where: subprocess.Popen(cli + ["--device", where], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+             for where in ("cuda", "cpu")}
+    try:
+        for where, proc in procs.items():
+            stdout, stderr = proc.communicate(timeout=400)
+            if where == "cuda":
+                seconds = time.perf_counter() - t0
+            print(stdout, stderr, sep="\n", file=sys.stderr, flush=True)
+            lines = [ln for ln in stdout.splitlines() if ln.startswith("best: pruned ")]
+            check(proc.returncode == 0 and len(lines) == 1,
+                  f"the CLI {extra} on {where} exited {proc.returncode}")
+            best[where] = lines[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     check(best["cuda"] == best["cpu"],
           f"the CLI {extra}: the card's result, {best['cuda']!r}, is not the host's, "
           f"{best['cpu']!r}")
@@ -1248,7 +1297,8 @@ def phase_brick_network(smi: str, dense_fitted) -> dict:
                                             log_tt32)
         float(m)
 
-    prof32 = _profile_steps(one_step32, dt32 / FLAGSHIP_STEPS * 1e3, steps=3)
+    # one step: reading a trace of ~6800 launches takes seconds
+    prof32 = _profile_steps(one_step32, dt32 / FLAGSHIP_STEPS * 1e3, steps=1)
     seconds_b = time.perf_counter() - t_b
 
     # (c) the CLI in network mode at 4 x 2
@@ -2231,6 +2281,339 @@ def phase_merge_split(smi: str) -> dict:
     return rec
 
 
+def _flagship_sliced(mesh):
+    """The flagship's experiment with ``mesh`` (built after any process
+    group, so its fit takes the rank form there), its target prepared
+    through the fit, the fresh cores phase 9 (b) starts from, and the
+    unmasked mask: ``(exp, params, mask, t_eff, log_tt)``."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.apps.symmetry_breaking import (
+        SymmetryBreakingConfig, make_experiment, target_tensor_init,
+    )
+
+    cfg = SymmetryBreakingConfig(n_qubits=FLAGSHIP_QUBITS, n_cells=FLAGSHIP_CELLS,
+                                 fidelity_mode="network", dtype=torch.float32,
+                                 device="cuda", mesh=mesh)
+    exp = make_experiment(cfg)
+    n = exp.graph.ncores
+    mask = sorted(np.random.default_rng(0).choice(n, size=n // 4, replace=False).tolist())
+    gen = torch.Generator().manual_seed(0)
+    target = target_tensor_init(exp, mask, gen)
+    t_eff, log_tt = exp.validate_fit.prepare(*target)
+    return exp, exp.init_params(gen), exp.mask_vector([]), t_eff, log_tt
+
+
+def _overlap_value_grad(fn, params, t_eff):
+    """log|<p, t>| of the max-abs-normalised ``params`` and its gradient."""
+    import torch
+
+    from tneq_tpu_torch.train.network_fit import _normalize
+
+    x = {k: v.detach().clone().requires_grad_() for k, v in _normalize(params).items()}
+    val = fn(x, t_eff)
+    grads = torch.autograd.grad(val, list(x.values()))
+    return float(val.detach()), dict(zip(x, grads))
+
+
+def _sliced_rank_main(rank: int, port: int, queue) -> None:
+    """Phase 13 (b) on one of two gloo ranks sharing cuda:0: the sliced
+    log-overlap's value and summed gradient, then ``RANK_STEPS`` fit steps."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                world_size=SLICED_POSITIONS, rank=rank)
+        from tneq_tpu_torch.parallel import make_mesh
+        from tneq_tpu_torch.parallel.mp import make_sliced_log_overlap_fn
+
+        mesh = make_mesh({"model": SLICED_POSITIONS}, devices=["cuda:0"] * SLICED_POSITIONS)
+        exp, params, mask, t_eff, log_tt = _flagship_sliced(mesh)
+        f = make_sliced_log_overlap_fn(exp.graph, mesh)
+        value, grads = _overlap_value_grad(f, params, t_eff)
+        grads = f.reduce_gradients(grads)
+        d = exp.validate_fit.drivers
+        opt, nlfs = d.optimizer.init(params), []
+        for _ in range(RANK_STEPS):
+            params, opt, m = d.step(params, opt, mask, t_eff, log_tt)
+            nlfs.append(float(m))
+        queue.put({"rank": rank, "ranks": f.ranks, "value": value,
+                   "grads": {k: v.cpu().numpy() for k, v in grads.items()},
+                   "params": {k: v.cpu().numpy() for k, v in params.items()},
+                   "neg_log_f": nlfs})
+    except Exception as e:
+        queue.put({"rank": rank, "failed": repr(e)})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def phase_sliced(smi: str, unsliced: dict, tmp: str) -> list:
+    """Phase 13: bond-sliced overlaps (parts a-c) and checkpoints (d), one
+    JSON line per part."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.engine import EngineSiamese
+    from tneq_tpu_torch.graph import parse_graph, wall_graph
+    from tneq_tpu_torch.model.qctn import QCTN
+    from tneq_tpu_torch.ops import chain_overlap, row_scan, transfer_step
+    from tneq_tpu_torch.parallel import make_mesh
+    from tneq_tpu_torch.parallel.mp import choose_slice_bonds, make_sliced_log_overlap_fn
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    def counts():
+        return {**chain_overlap.launch_counts(), **transfer_step.launch_counts()}
+
+    def reset():
+        chain_overlap.reset_launch_counts()
+        transfer_step.reset_launch_counts()
+
+    recs = []
+    # (a) the flagship, sliced in one process
+    t_part = time.perf_counter()
+    reset()
+    mesh = make_mesh({"model": SLICED_POSITIONS}, devices=["cuda:0"] * SLICED_POSITIONS)
+    exp, params, mask, t_eff, log_tt = _flagship_sliced(mesh)
+    ref_exp, _, _, ref_t_eff, ref_log_tt = _flagship_sliced(None)
+    d, ref_d = exp.validate_fit.drivers, ref_exp.validate_fit.drivers
+    # -log F at the same cores: the metric of one step, sliced and unsliced
+    _, _, nlf0 = d.step(params, d.optimizer.init(params), mask, t_eff, log_tt)
+    _, _, ref_nlf0 = ref_d.step(params, ref_d.optimizer.init(params), mask, ref_t_eff,
+                                ref_log_tt)
+    nlf_err = abs(float(nlf0) - float(ref_nlf0)) / max(1.0, abs(float(ref_nlf0)))
+    check(math.isfinite(float(nlf0)) and nlf_err <= TOL_LANE,
+          f"sliced flagship: -log F {float(nlf0)} vs unsliced {float(ref_nlf0)}, err {nlf_err}")
+    f = make_sliced_log_overlap_fn(exp.graph, mesh)
+    value, grads = _overlap_value_grad(f, params, t_eff)
+    ref_value, ref_grads = _overlap_value_grad(
+        row_scan.make_row_scan_log_overlap_fn(exp.graph), params, t_eff)
+    scale = max(float(g.abs().max()) for g in ref_grads.values())
+    grad_err = max(float((grads[k] - ref_grads[k]).abs().max()) for k in grads) / scale
+    check(grad_err <= TOL_SLICED_GRAD,
+          f"sliced flagship: log-overlap gradient vs unsliced, err {grad_err}")
+    opt = d.optimizer.init(params)
+    p = params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(SLICED_STEPS):
+        p, opt, nlf = d.step(p, opt, mask, t_eff, log_tt)
+        losses.append(float(nlf))  # the exit test's host sync, as in the fit loop
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(all(math.isfinite(x) for x in losses), f"sliced flagship: -log F {losses}")
+    box = {"p": p, "o": opt}
+
+    def one_step():
+        box["p"], box["o"], m = d.step(box["p"], box["o"], mask, t_eff, log_tt)
+        float(m)
+
+    # one step: reading a trace of ~13,000 launches takes tens of seconds
+    prof = _profile_steps(one_step, dt / SLICED_STEPS * 1e3, steps=1)
+    # one step at SLICED_WIDE positions: more bonds (or a padded tail)
+    wide_mesh = make_mesh({"model": SLICED_WIDE}, devices=["cuda:0"] * SLICED_WIDE)
+    wide_bonds = choose_slice_bonds(exp.graph, SLICED_WIDE, prefer_early_rows=True)
+    wide_exp, _, _, wide_t_eff, wide_log_tt = _flagship_sliced(wide_mesh)
+    wd = wide_exp.validate_fit.drivers
+    _, _, wide_nlf = wd.step(params, wd.optimizer.init(params), mask, wide_t_eff, wide_log_tt)
+    wide_err = abs(float(wide_nlf) - float(ref_nlf0)) / max(1.0, abs(float(ref_nlf0)))
+    check(wide_err <= TOL_LANE, f"sliced flagship at {SLICED_WIDE} positions: -log F "
+          f"{float(wide_nlf)} vs unsliced {float(ref_nlf0)}")
+    launches = counts()
+    check(launches["chain_sweep_fwd"] == launches["chain_sweep_bwd"] == 0,
+          f"sliced flagship: the chain route is off, yet {launches}")
+    uf = unsliced["flagship"]
+    rec_a = {
+        "phase": "sliced", "part": "a_flagship_one_process",
+        "program": "the flagship of phase 9 (b) (32 x 5, float32, 155 cores) with "
+                   f"make_mesh({{'model': {SLICED_POSITIONS}}}, devices=['cuda:0'] * "
+                   f"{SLICED_POSITIONS}): every overlap bond-sliced, one process",
+        "bonds": [list(b) for b in choose_slice_bonds(exp.graph, SLICED_POSITIONS, True)],
+        "neg_log_f_sliced_unsliced": [float(nlf0), float(ref_nlf0)],
+        "neg_log_f_err": nlf_err, "tolerance": TOL_LANE,
+        "log_overlap_sliced_unsliced": [value, ref_value],
+        "grad_err": grad_err, "grad_tolerance": TOL_SLICED_GRAD,
+        "fit_steps": SLICED_STEPS, "neg_log_f_first_last": [losses[0], losses[-1]],
+        "fit_steps_per_s": SLICED_STEPS / dt, "ms_per_step": dt / SLICED_STEPS * 1e3,
+        "max_memory_allocated_bytes": peak, "profile": prof,
+        "unsliced_phase9b": {"fit_steps_per_s": uf["fit_steps_per_s"],
+                             "kernel_launches_per_step":
+                                 uf["profile"]["kernel_launches_per_step"],
+                             "device_idle_share": uf["profile"]["device_idle_share"],
+                             "max_memory_allocated_bytes": uf["max_memory_allocated_bytes"]},
+        "wide": {"positions": SLICED_WIDE, "bonds": [list(b) for b in wide_bonds],
+                 "neg_log_f": float(wide_nlf), "err": wide_err},
+        "port_kernel_launches": launches,
+        "seconds": time.perf_counter() - t_part, "card": smi,
+    }
+    emit(rec_a)
+    recs.append(rec_a)
+
+    # (b) two gloo ranks on cuda:0 against the one-process form of (a)
+    t_part = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=_sliced_rank_main, args=(r, port, queue))
+             for r in range(SLICED_POSITIONS)]
+    for proc in procs:
+        proc.start()
+    try:
+        outs = sorted((queue.get(timeout=600) for _ in procs), key=lambda o: o["rank"])
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    failed = [o["failed"] for o in outs if "failed" in o]
+    check(not failed and all(proc.exitcode == 0 for proc in procs),
+          f"sliced ranks: {failed}, exit codes {[proc.exitcode for proc in procs]}")
+    one_grads = {k: v.cpu().numpy() for k, v in grads.items()}
+    g_scale = max(float(np.abs(v).max()) for v in one_grads.values())
+    rank_rec = []
+    for o in outs:
+        v_err = abs(o["value"] - value) / max(1.0, abs(value))
+        g_err = max(float(np.abs(o["grads"][k] - one_grads[k]).max())
+                    for k in one_grads) / g_scale
+        nlf_err_r = max(abs(a - b) / max(1.0, abs(b))
+                        for a, b in zip(o["neg_log_f"], losses[:RANK_STEPS]))
+        check(o["ranks"] and v_err <= TOL_RANK_VALUE and g_err <= TOL_RANK_GRAD
+              and nlf_err_r <= TOL_LANE,
+              f"sliced rank {o['rank']}: value err {v_err}, gradient err {g_err}, "
+              f"-log F err {nlf_err_r}")
+        rank_rec.append({"rank": o["rank"], "value": o["value"], "value_err": v_err,
+                         "grad_err": g_err, "neg_log_f": o["neg_log_f"],
+                         "neg_log_f_err": nlf_err_r})
+    equal = all(np.array_equal(outs[0]["params"][k], outs[1]["params"][k])
+                for k in outs[0]["params"])
+    check(equal, f"sliced ranks: the replicas' params differ after {RANK_STEPS} steps")
+    rec_b = {"phase": "sliced", "part": "b_gloo_ranks",
+             "program": f"{SLICED_POSITIONS} gloo ranks (spawn) sharing cuda:0, one per "
+                        "model position: the flagship's sliced log-overlap value and "
+                        f"summed gradient, then {RANK_STEPS} fit steps",
+             "ranks": rank_rec, "replicas_bit_equal": equal,
+             "tolerances": {"value": TOL_RANK_VALUE, "grad": TOL_RANK_GRAD,
+                            "neg_log_f": TOL_LANE},
+             "seconds": time.perf_counter() - t_part, "card": smi}
+    emit(rec_b)
+    recs.append(rec_b)
+
+    # (c) the engine with a mesh, and the sliced CLI on card and host
+    t_part = time.perf_counter()
+    g = parse_graph(wall_graph(ENGINE_QUBITS, layers=ENGINE_LAYERS, dim=2))
+    x = np.random.default_rng(0).normal(size=(ENGINE_BATCH, ENGINE_QUBITS)).astype(np.float32)
+    model = QCTN(g, seed=0, dtype=torch.complex64, device="cuda")
+    states = basis_states(g, device="cuda")
+    plain_eng = EngineSiamese(device="cuda")
+    mesh_eng = EngineSiamese(device="cuda", mesh=make_mesh(
+        {"model": SLICED_POSITIONS}, devices=["cuda:0"] * SLICED_POSITIONS))
+    mx, _ = plain_eng.generate_data(x, K=2)
+    probs = mesh_eng.contract_with_compiled_strategy(model, states, mx)
+    plain = plain_eng.contract_with_compiled_strategy(model, states, mx)
+    eng_err = _norm_err(probs, plain.cpu())
+    check(bool(torch.isfinite(probs).all()) and eng_err <= TOL_INFER,
+          f"engine with a mesh vs mesh=None: {eng_err}")
+    # seed 1: its first 4 x 2 target validates (seed 0's stalls and is drawn anew)
+    cli = _cli_pair(["--fidelity-mode", "network", "--n-qubits", "4", "--n-cells", "2",
+                     "--restarts", "1", "--prune-steps", "5", "--validate-steps", "100",
+                     "--seed", "1", "--slice-devices", str(SLICED_POSITIONS)])
+    rec_c = {"phase": "sliced", "part": "c_engine_and_cli",
+             "engine": {"program": "README Quick start (phase 11 b) with "
+                                   f"mesh={{'model': {SLICED_POSITIONS}}} on cuda:0",
+                        "err_vs_no_mesh": eng_err, "tolerance": TOL_INFER},
+             "cli": {"argv": "--fidelity-mode network --n-qubits 4 --n-cells 2 --restarts 1 "
+                             "--prune-steps 5 --validate-steps 100 --seed 1 --slice-devices "
+                             f"{SLICED_POSITIONS}", **cli},
+             "seconds": time.perf_counter() - t_part, "card": smi}
+    emit(rec_c)
+    recs.append(rec_c)
+
+    # (d) checkpoints: train_single_node --save at its defaults (B4), the
+    # file on the card, and a Trainer resumed from a CheckpointManager
+    from tneq_tpu_torch.apps.train_single_node import main as cli_main
+    from tneq_tpu_torch.graph import example_graph
+    from tneq_tpu_torch.train.trainer import Trainer, TrainingConfig
+    from tneq_tpu_torch.utils import CheckpointManager
+    from tneq_tpu_torch.utils._safetensors import load_file
+
+    t_part = time.perf_counter()
+    path = f"{tmp}/cli.safetensors"
+    reset()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = cli_main(["--save", path])
+    torch.cuda.synchronize()
+    cli_counts = counts()
+    check(cli_counts["transfer_step_complex"] == 2 * stats.steps,
+          f"--save run: launch counts {cli_counts}, expected B4 = {2 * stats.steps}")
+    src = example_graph(8, "mps", 3)
+    loaded = QCTN.from_pretrained(src, path, device="cuda")
+    tensors, meta = load_file(path)
+    bit_equal = all(
+        np.array_equal(loaded.params[n].cpu().numpy(),
+                       tensors[f"core_{n}_real"] + 1j * tensors[f"core_{n}_imag"])
+        for n in loaded.cores)
+    init = QCTN(src, device="cuda").params  # the CLI's cores before training
+    moved = any(not torch.equal(loaded.params[n], init[n]) for n in loaded.cores)
+    check(meta == {"graph": "mps"} and bit_equal and moved,
+          f"--save file: metadata {meta}, bit-equal {bit_equal}, trained {moved}")
+    trainer = Trainer(loaded.graph, config=TrainingConfig(max_steps=2 * RESUME_STEPS),
+                      dtype=torch.complex64, device="cuda")
+    st = basis_states(loaded.graph, dtype=torch.complex64, device="cuda")
+    rng = np.random.default_rng(0)
+    xs = [torch.as_tensor(rng.normal(size=(32, 8)).astype(np.float32), device="cuda")
+          for _ in range(2 * RESUME_STEPS)]
+
+    def run(p, o, batches):
+        out = []
+        for xb in batches:
+            p, o, loss = trainer.train_step(p, o, st, xb)
+            out.append(float(loss))
+        return p, o, out
+
+    p0 = loaded.params
+    _, _, full = run(p0, trainer.optimizer.init(p0), xs)
+    p3, o3, first = run(p0, trainer.optimizer.init(p0), xs[:RESUME_STEPS])
+    mgr = CheckpointManager(f"{tmp}/ckpt", keep=2)
+    mgr.save(RESUME_STEPS, p3, o3)
+    step, p_np, o_res, _ = mgr.load(opt_state_template=trainer.optimizer.init(p0))
+    p_res = {k: torch.as_tensor(v, device="cuda") for k, v in p_np.items()}
+    _, _, rest = run(p_res, o_res, xs[RESUME_STEPS:])
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(first + rest, full))
+    check(step == RESUME_STEPS and resume_err <= TOL_RESUME,
+          f"resume: step {step}, losses {first + rest} vs {full}, err {resume_err}")
+    rec_d = {"phase": "sliced", "part": "d_checkpoints",
+             "program": "apps.train_single_node.main(['--save', path]) at its defaults "
+                        "(the cli cell); QCTN.from_pretrained on the card; the cli cell's "
+                        f"Trainer saved after {RESUME_STEPS} of {2 * RESUME_STEPS} steps "
+                        "by CheckpointManager and resumed",
+             "steps": stats.steps, "launches": cli_counts,
+             "from_pretrained_bit_equal": bit_equal, "metadata": meta,
+             "losses_resumed_uninterrupted": [first + rest, full],
+             "resume_rel_err": resume_err, "tolerance": TOL_RESUME,
+             "seconds": time.perf_counter() - t_part, "card": smi}
+    emit(rec_d)
+    recs.append(rec_d)
+    return recs
+
+
 def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                  batched: list, large_n: dict, prob: dict) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
@@ -2332,28 +2715,41 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
         return 2
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+
     try:
-        setup = phase_setup()
-        kern = phase_kernels()
-        lane_kern = phase_lane_kernels(setup["nvidia_smi"])
-        bench = phase_bench(setup["nvidia_smi"])
-        _, experiment = phase_experiment()
-        transfer = phase_transfer_kernels()
-        born = phase_born_rule(setup["nvidia_smi"])
-        cli = phase_cli(setup["nvidia_smi"])
-        _, dense_fitted = phase_brick(setup["nvidia_smi"])
-        phase_brick_network(setup["nvidia_smi"], dense_fitted)
-        batched = phase_batched(setup["nvidia_smi"], experiment, dense_fitted)
-        large_n = phase_large_n(setup["nvidia_smi"])
-        phase_engine(setup["nvidia_smi"])
-        prob = phase_probability_checks(setup["nvidia_smi"])
+        setup = timed("setup", phase_setup)
+        smi = setup["nvidia_smi"]
+        kern = timed("kernels", phase_kernels)
+        lane_kern = timed("lane_kernels", phase_lane_kernels, smi)
+        bench = timed("bench", phase_bench, smi)
+        _, experiment = timed("experiment", phase_experiment)
+        transfer = timed("transfer_kernels", phase_transfer_kernels)
+        born = timed("born_rule", phase_born_rule, smi)
+        cli = timed("cli", phase_cli, smi)
+        _, dense_fitted = timed("brick", phase_brick, smi)
+        brick_network = timed("brick_network", phase_brick_network, smi, dense_fitted)
+        batched = timed("batched", phase_batched, smi, experiment, dense_fitted)
+        large_n = timed("large_n", phase_large_n, smi)
+        timed("engine", phase_engine, smi)
+        prob = timed("probability_checks", phase_probability_checks, smi)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-            phase_ga_cli(setup["nvidia_smi"], tmp)
-        phase_ga30(setup["nvidia_smi"])
-        phase_merge_split(setup["nvidia_smi"])
+            timed("ga_cli", phase_ga_cli, smi, tmp)
+        timed("ga30", phase_ga30, smi)
+        timed("merge_split", phase_merge_split, smi)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            timed("sliced", phase_sliced, smi, brick_network, tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
+    emit({"phase": "timing", "seconds": seconds, "total": sum(seconds.values())})
     emit(kernels_line(kern, bench, transfer, born, cli, [lane_kern] + batched, large_n,
                       prob))
     print(nvidia_smi(), flush=True)

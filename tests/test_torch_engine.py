@@ -209,9 +209,30 @@ def test_vector_measure_matches_matrix(models):
     np.testing.assert_allclose(float(loss_v), float(loss_m), rtol=1e-4)
 
 
-def test_engine_with_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        EngineSiamese(mesh=object(), device="cpu")
+def test_engine_with_mesh_raises(models):
+    """``mesh=`` routes the contraction through the bond-sliced strategy:
+    the same probabilities as JAX's engine on its own 2-device mesh and as
+    the port's ``mesh=None`` (1e-5 of the batch's largest), the scaled path
+    unchanged; a mesh over two devices raises, naming the rank form."""
+    from tneq_tpu.parallel import make_mesh as j_make_mesh
+    from tneq_tpu_torch.parallel import make_mesh
+
+    m, jm, states, jstates = models
+    eng = EngineSiamese(device="cpu", mesh=make_mesh({"data": 1, "model": 2},
+                                                     devices=["cpu"] * 2))
+    jeng = JEngine(mesh=j_make_mesh({"data": 1, "model": 2}, devices=jax.devices()[:2]))
+    mx, _, jmx = _data(eng, jeng, _x(11, 6))
+    got = eng.contract_with_compiled_strategy(m, states, mx)
+    ref = np.asarray(jeng.contract_with_compiled_strategy(jm, jstates, jmx))
+    plain = EngineSiamese(device="cpu").contract_with_compiled_strategy(m, states, mx)
+    scale = float(np.abs(ref).max())
+    assert float(np.abs(got.numpy() - ref).max()) <= 1e-5 * scale
+    assert float((got - plain).abs().max()) <= 1e-5 * scale
+    scaled = eng.contract_with_compiled_strategy(m, states, mx, ret_type="scaled")
+    torch.testing.assert_close(scaled[0] * torch.exp(scaled[1]), plain, rtol=1e-4, atol=0)
+    two = EngineSiamese(device="cpu", mesh=make_mesh({"model": 2}, devices=["cpu", "meta"]))
+    with pytest.raises(ValueError, match="rank form"):
+        two.contract_with_compiled_strategy(m, states, mx)
 
 
 def test_compiled_closure_caches_are_lru_bounded():

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor ``tneq_tpu``, and its
+"""The port stands alone: it imports neither JAX, ``tneq_tpu`` nor the
+``safetensors`` package (the machine with the card lacks it), and its
 entry points run on the card unless the caller asks for the CPU."""
 
 import os
@@ -29,8 +30,8 @@ names = [m.name for m in pkgutil.walk_packages(tneq_tpu_torch.__path__, "tneq_tp
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "jaxlib", "optax", "tneq_tpu")
-             or m.startswith(("jax.", "jaxlib.", "optax.", "tneq_tpu.")))
+             if m in ("jax", "jaxlib", "optax", "tneq_tpu", "safetensors")
+             or m.startswith(("jax.", "jaxlib.", "optax.", "tneq_tpu.", "safetensors.")))
 print(len(names), bad)
 assert not bad, bad
 assert "tneq_tpu_torch.ops.row_scan" in names and "tneq_tpu_torch.ops.pairwise" in names
@@ -42,6 +43,8 @@ for m in ("infer", "infer.probability", "infer.sampling", "infer.chain_sampling"
 for m in ("graph.mutable", "graph.surgery", "genetic", "genetic.codes", "genetic.individual",
           "genetic.generation", "genetic.evaluator", "genetic.farm", "genetic.search",
           "apps.structure_search", "apps.merge_split_demo"):
+    assert "tneq_tpu_torch." + m in names, m
+for m in ("parallel", "parallel.mesh", "parallel.mp", "utils.checkpoint", "utils._safetensors"):
     assert "tneq_tpu_torch." + m in names, m
 """
 
@@ -86,6 +89,9 @@ def test_entry_points_default_to_the_card():
         farm = DeviceFarm(CandidateEvaluator(g, p))
         assert [d.type for d in farm.devices] == ["cuda"] * torch.cuda.device_count()
         farm.shutdown()
+        from tneq_tpu_torch.parallel import make_mesh
+
+        assert [d.type for d in make_mesh().devices.flat] == ["cuda"] * torch.cuda.device_count()
         return
     with pytest.raises(RuntimeError, match="no CUDA device"):
         init_params(g, 0, torch.float32)
@@ -151,6 +157,17 @@ def test_entry_points_default_to_the_card():
         structure_search.main(["--tn-size", "3", "--generations", "1"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         merge_split_demo.main([])
+    # the mesh of the bond-sliced overlaps, and the CLI that builds one
+    from tneq_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh({"model": 2}, devices=["cuda:0"] * 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        brick_main(["--n-qubits", "4", "--n-cells", "2", "--restarts", "1",
+                    "--fidelity-mode", "network", "--slice-devices", "2"])
+    assert make_mesh({"model": 2}, devices=["cpu"] * 2).shape == {"model": 2}
 
 
 def test_cpu_on_request():
@@ -197,3 +214,58 @@ def test_matmul_precision_scoped():
     with pytest.raises(ValueError):
         with matmul_precision("bogus"):
             pass
+
+
+# names of JAX's subpackage __all__ lists that the port does not export yet,
+# each with the ROADMAP item that ports it
+_NOT_YET = {
+    "bench": ({"ALL_STAGES", "stage_checkpoint_io", "stage_collectives",
+               "stage_dtype_policy", "stage_env_audit", "stage_large_network",
+               "stage_matmul_peak", "stage_memory_bandwidth", "stage_tn_workload",
+               "stage_transpose_cost"}, "13a"),
+    "utils": ({"AgentBehavior", "CallbackList", "Colors", "Configuration",
+               "EvolutionProperty", "Experiment", "ExperimentRecorder",
+               "GenerationProperty", "OverlordProperty", "StepTimer", "annotate",
+               "setup_colored_logger", "setup_logger", "trace"}, "12b"),
+    "parallel": ({"data_sharding", "replicated", "make_dp_train_step", "shard_batch",
+                  "DistributedConfig", "DistributedTrainer", "check_mesh_health",
+                  "detect_multihost", "initialize_multihost", "is_main_process"}, "11b"),
+}
+
+
+def _exported(path):
+    """A package's ``__all__``, or without one the public names its
+    ``__init__`` imports from its own modules (``ast``: no import runs)."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return {a.asname or a.name for node in tree.body
+            if isinstance(node, ast.ImportFrom) and node.level >= 1
+            for a in node.names if not (a.asname or a.name).startswith("_")}
+
+
+def test_port_exports_the_reference_public_names():
+    """Every name of each ``tneq_tpu`` package's ``__all__`` (the top level's
+    imports) is in the port's, less ``_NOT_YET``; the names listed there are
+    missing still (and nothing else is)."""
+    import pathlib
+
+    root = pathlib.Path(REPO)
+    checked = 0
+    for init in sorted((root / "tneq_tpu").rglob("__init__.py")):
+        rel = init.relative_to(root / "tneq_tpu")
+        ours = root / "tneq_tpu_torch" / rel
+        assert ours.exists(), f"tneq_tpu_torch/{rel.parent} is missing"
+        missing = _exported(init) - _exported(ours)
+        pending, _ = _NOT_YET.get(str(rel.parent), (set(), None))
+        assert missing == pending, (str(rel.parent), sorted(missing ^ pending))
+        checked += 1
+    assert checked >= 12
+    from tneq_tpu_torch import QCTN, CircuitGraph, CoreSpec, Edge, parse_graph  # noqa: F401
+    from tneq_tpu_torch.native import native_available
+
+    assert native_available()

@@ -138,8 +138,14 @@ def test_compile_siamese_dispatch():
     for kw in ({"mode": "einsum"}, {"states_batched": True}, {"measure_extra_dims": 2}):
         assert compile_siamese(chain, **kw)[1] == "einsum_pairwise"
     assert compile_siamese(wall)[1] == "einsum_pairwise"
-    with pytest.raises(NotImplementedError, match="item 11"):
+    # the bond-sliced strategy needs a mesh (tests/test_torch_parallel_mp.py)
+    with pytest.raises(ValueError, match="needs a mesh"):
         compile_siamese(chain, mode="sliced")
+    from tneq_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"model": 2}, devices=["cpu"] * 2)
+    assert compile_siamese(chain, mesh=mesh)[1] == "sliced_shard_map"
+    assert compile_siamese(chain, mesh=mesh, mode="einsum")[1] == "einsum_pairwise"
     with pytest.raises(ValueError, match="not an MPS chain"):
         compile_siamese(wall, mode="mps_sweep")
     with pytest.raises(ValueError, match="unknown mode"):

@@ -108,17 +108,23 @@ def test_direct_scan_gradcheck_complex128():
 
 def test_non_chain_graphs_raise():
     """Non-chain graphs run now (held against JAX below), and so do the
-    stacked-real pairs (7c, test_torch_complex_pair.py); what still raises
-    is the multi-device mesh (item 11)."""
+    stacked-real pairs (7c, test_torch_complex_pair.py) and the mesh
+    (11a, test_torch_parallel_mp.py); what raises is a mesh whose positions
+    lie on two devices in one process (the rank form's)."""
     from tneq_tpu_torch.graph import wall_graph
+    from tneq_tpu_torch.parallel import make_mesh
 
     g = t_parse(wall_graph(4, 2, 2))
     assert t_make_fit(g, t_sgdg(0.1), 5, device="cpu").scope == "fit"
     p = params_from_numpy(_graph_cores(g, torch.complex64, 0), "cpu")
     assert torch.isfinite(t_nlf(g, p, p)) and abs(float(t_nlf(g, p, p))) < 1e-5
+    assert float(network_fidelity(g, p, p, target_norm=3.0)) == pytest.approx(1.0, abs=1e-5)
     for gr in (g, t_parse(mps_graph(4, 2))):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            t_make_fit(gr, t_sgdg(0.1), 5, mesh=object(), device="cpu")
+        with pytest.raises(ValueError, match="rank form"):
+            t_make_fit(gr, t_sgdg(0.1), 5, mesh=make_mesh({"model": 2}, devices=["cpu", "meta"]),
+                       device="cpu")
+        mesh = make_mesh({"model": 2}, devices=["cpu"] * 2)
+        assert t_make_fit(gr, t_sgdg(0.1), 5, mesh=mesh, device="cpu").scope == "fit"
         assert t_make_fit(gr, t_sgdg(0.1), 5, complex_as_real=True, device="cpu").scope == "fit"
 
 

@@ -126,20 +126,23 @@ def test_unported_and_invalid_configs_raise(kw, exc):
 
 
 def test_cli_waits_for_the_brick_wall_slice():
-    """The brick wall runs now, in both fidelity modes, batched and in
-    pair form; only --slice-devices still waits, naming its ROADMAP item."""
+    """The brick wall runs now, in both fidelity modes, batched, in pair
+    form and bond-sliced over 2 positions of a model axis on --device
+    (--slice-devices, with the unsliced CLI's result)."""
     cpu = ["--device", "cpu", "--n-qubits", "4", "--n-cells", "2"]
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ts.main(cpu + ["--fidelity-mode", "network", "--slice-devices", "2"])
+    net = cpu + ["--fidelity-mode", "network", "--restarts", "1", "--prune-steps", "5",
+                 "--validate-steps", "100"]
+    sliced = ts.main(net + ["--slice-devices", "2"])
+    assert sliced["n_cores"] == 6 and sliced["pruned"] == []
     # --batched in pair form: a 20-step prune scores all 6 candidates in one
     # round of lanes (pieces of 4, the second padded) and prunes none
     res = ts.main(cpu + ["--restarts", "1", "--prune-steps", "20", "--dtype", "complex64-pair",
                          "--batched", "--lane-chunk", "4"])
     assert res["n_cores"] == 6 and res["pruned"] == [] and res["attempts"] == 6
     # network mode: its first target stalls near F = 0.45 and is drawn anew
-    res = ts.main(cpu + ["--fidelity-mode", "network", "--restarts", "1", "--prune-steps", "5",
-                         "--validate-steps", "100"])
+    res = ts.main(net)
     assert res["n_cores"] == 6 and res["pruned"] == []
+    assert (sliced["pruned"], sliced["attempts"]) == (res["pruned"], res["attempts"])
     with pytest.raises(SystemExit):  # as in JAX: slicing needs network mode
         ts.main(cpu + ["--slice-devices", "2"])
 

@@ -15,3 +15,8 @@ first use (``ops/cuda_build.py``); the contraction-path finder in
 """
 
 __version__ = "0.1.0"
+
+from .graph import CircuitGraph, CoreSpec, Edge, parse_graph
+from .model import QCTN
+
+__all__ = ["CircuitGraph", "CoreSpec", "Edge", "parse_graph", "QCTN"]

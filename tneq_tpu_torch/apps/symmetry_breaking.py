@@ -23,14 +23,18 @@ sweep kernels (``ops/chain_overlap.py``).  ``complex_as_real`` runs the
 brick wall's complex cores as stacked-real pairs (``ops/complex_pair.py``,
 ``optim/pair_stiefel.py``).  :func:`symmetry_breaking_batched` scores every
 remaining candidate of an accept round in lockstep lanes (``fit.batched``,
-``torch.func.vmap``), at most ``lane_chunk`` per call.  Still to come:
-bond-sliced multi-device overlaps (item 11).
+``torch.func.vmap``), at most ``lane_chunk`` per call.  In network mode a
+mesh (``cfg.mesh``; the CLI's ``--slice-devices N`` puts N positions of a
+``model`` axis on ``--device``) bond-slices every overlap
+(``parallel/mp.py``).
 
     python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2
     python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2 \
         --fidelity-mode network
     python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2 \
         --dtype complex64-pair --batched
+    python -m tneq_tpu_torch.apps.symmetry_breaking --device cpu --n-qubits 4 --n-cells 2 \
+        --fidelity-mode network --slice-devices 2
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from ..ops.contract import make_core_only_fn
 from ..optim.factory import make_optimizer
 from ..optim.pair_stiefel import pair_sgdg
 from ..optim.stiefel import sgdg
+from ..parallel.mesh import make_mesh
 from ..train.fit import (
     identity_cores,
     make_masked_fidelity_fit,
@@ -73,11 +78,6 @@ __all__ = [
     "symmetry_breaking_batched",
     "main",
 ]
-
-_SLICED = (
-    "bond-sliced multi-device overlaps (--slice-devices) wait for the "
-    "parallel layer (ROADMAP queue A, item 11)"
-)
 
 
 @dataclass
@@ -442,15 +442,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     p.add_argument("--sync-every", type=int, default=1,
                    help="steps per exit test for jit-scope step/chunk")
     p.add_argument("--slice-devices", type=int, default=1,
-                   help="network-mode fits: shard bond-sliced overlaps over "
-                        "this many devices (not ported yet: item 11)")
+                   help="network-mode fits: share bond-sliced overlaps out over "
+                        "this many positions of a 'model' mesh axis, all on "
+                        "--device (parallel/mp.py)")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     args = p.parse_args(argv)
 
-    if args.slice_devices > 1:
-        if args.fidelity_mode != "network":
-            p.error("--slice-devices requires --fidelity-mode network")
-        raise NotImplementedError(_SLICED)
     cfg = SymmetryBreakingConfig(
         n_qubits=args.n_qubits,
         n_cells=args.n_cells,
@@ -466,6 +463,12 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         fit_sync_every=args.sync_every,
         device=args.device,
     )
+    if args.slice_devices > 1:
+        if args.fidelity_mode != "network":
+            p.error("--slice-devices requires --fidelity-mode network")
+        # JAX's CLI spans jax.devices(); this one is a one-device CLI
+        cfg.mesh = make_mesh({"model": args.slice_devices},
+                             devices=[args.device] * args.slice_devices)
     exp = make_experiment(cfg)
     gen = torch.Generator().manual_seed(cfg.seed)
 

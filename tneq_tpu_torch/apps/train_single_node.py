@@ -7,8 +7,9 @@ plus ``--device`` (default ``cuda``)::
 
     python -m tneq_tpu_torch.apps.train_single_node --device cpu --steps 20
 
-``--save`` waits for the checkpoint I/O (ROADMAP A, item 2) and
-``--profile`` for ``utils/profiling.py`` (item 12); both raise.  MPS chains
+``--save`` writes the trained cores to a safetensors file with the graph
+type in its metadata (``QCTN.save_cores``); ``--profile`` waits for
+``utils/profiling.py`` (ROADMAP A, item 12b) and raises.  MPS chains
 take the transfer sweep, the other graph types the pairwise einsum path
 (``ops/compiler.compile_siamese``).
 """
@@ -54,14 +55,12 @@ def main(argv: Optional[Sequence[str]] = None):
     args = p.parse_args(argv)
     if args.profile:
         raise NotImplementedError(
-            "--profile waits for the port's utils/profiling.py (ROADMAP A, item 12)"
+            "--profile waits for the port's utils/profiling.py (ROADMAP A, item 12b)"
         )
 
     dtype = torch.complex64 if args.dtype == "complex64" else torch.float32
     src = example_graph(args.num_qubits, args.graph_type, args.dim)
     model = QCTN(src, seed=args.seed, dtype=dtype, device=args.device)
-    if args.save:
-        model.save_cores(args.save)  # raises: no checkpoint I/O yet
     print(f"graph ({args.graph_type}, {model.nqubits} qubits, "
           f"{model.ncores} cores)")
 
@@ -92,6 +91,9 @@ def main(argv: Optional[Sequence[str]] = None):
           f"({stats.steps / max(dt, 1e-9):.1f} steps/s); "
           f"loss {stats.losses[0]:.4f} -> {stats.final_loss:.4f}")
     model.params = params
+    if args.save:
+        model.save_cores(args.save, metadata={"graph": args.graph_type})
+        print(f"saved cores to {args.save}")
     return stats
 
 

@@ -25,6 +25,7 @@ from .infer.probability import (
 )
 from .infer.sampling import sample as _sample
 from .model.qctn import QCTN
+from .ops.compiler import compile_siamese
 from .ops.contract import abs_square, make_siamese_fn
 from .ops.features import generate_data as _generate_data
 from .ops.scaling import scaled_siamese_fn
@@ -83,14 +84,11 @@ class EngineSiamese:
         ``use_scaling``: contract through the log-scale path for deep
         networks; ``cache_size`` bounds the per-engine closure caches (LRU
         eviction); ``device`` holds the data and the default sampling
-        generator.  ``mesh`` (JAX: the bond-sliced strategy over a 'model'
-        axis) waits for the parallel layer and raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "EngineSiamese(mesh=...) routes through the index-sliced strategy, "
-                "which waits for the parallel layer (ROADMAP A, item 11)"
-            )
+        generator.  ``mesh`` (``parallel.make_mesh``) with a 'model' axis
+        routes the plain contraction through ``compile_siamese``'s
+        bond-sliced strategy; the scaled path ignores it, as in JAX."""
         self.dtype = dtype
+        self.mesh = mesh
         self.mx_K = mx_K
         self.use_scaling = use_scaling
         self.device = resolve_device(device)
@@ -134,7 +132,10 @@ class EngineSiamese:
                     return _born_scaled(*contract(params, states, measures))
 
             else:
-                contract = make_siamese_fn(graph, with_states, sb)
+                if self.mesh is not None:
+                    contract, _ = compile_siamese(graph, mesh=self.mesh, states_batched=sb)
+                else:
+                    contract = make_siamese_fn(graph, with_states, sb)
 
                 def fwd(params, states, measures):
                     raw = contract(params, states, measures)

@@ -17,6 +17,7 @@ every device.
 from __future__ import annotations
 
 import warnings
+from pathlib import Path
 from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -30,6 +31,8 @@ from ..ops.contract import (
     make_with_inputs_fn,
     siamese_probability,
 )
+from ..utils._safetensors import load_file, save_file
+from ..utils.checkpoint import cores_from_tensors, cores_to_tensors
 from ..utils.device import DeviceLike, resolve_device
 
 __all__ = [
@@ -117,12 +120,6 @@ def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]
     return {k: v.detach().cpu().numpy() for k, v in params.items()}
 
 
-_CHECKPOINTS = (
-    "safetensors checkpoints wait for the port's checkpoint I/O "
-    "(ROADMAP A, item 2): the machine with the card has no safetensors"
-)
-
-
 class QCTN:
     """Quantum Circuit Tensor Network: immutable graph + parameter dict.
 
@@ -131,7 +128,9 @@ class QCTN:
     contraction conveniences run through ``ops/contract.py``, the surgery
     methods (``split``, ``merge_with``, ``merge``) through
     ``graph/surgery.py``; their halves and merges live on this model's
-    device and carry its cores unchanged.
+    device and carry its cores unchanged.  Checkpoints: ``save_cores``,
+    ``load_cores`` and ``from_pretrained`` (safetensors files under the
+    reference's core names, ``utils/checkpoint.py``).
     """
 
     def __init__(
@@ -240,11 +239,44 @@ class QCTN:
 
     # -- checkpoint I/O -----------------------------------------------------
 
-    def save_cores(self, file_path, metadata=None) -> None:
-        raise NotImplementedError(_CHECKPOINTS)
+    def save_cores(
+        self,
+        file_path: Union[str, Path],
+        metadata: Optional[Mapping[str, str]] = None,
+    ) -> None:
+        """Save to safetensors with the reference's real/imag split naming
+        (``utils/checkpoint.py``); ``metadata`` is stored as strings."""
+        meta = {str(k): str(v) for k, v in (metadata or {}).items()}
+        save_file(cores_to_tensors(self.params), file_path, metadata=meta)
 
-    def load_cores(self, file_path, strict: bool = True):
-        raise NotImplementedError(_CHECKPOINTS)
+    def load_cores(self, file_path: Union[str, Path], strict: bool = True) -> Dict[str, str]:
+        """Load this graph's cores from a safetensors file onto the model's
+        device, in its dtype; returns the file's metadata.  ``strict``: a
+        core missing from the file raises ``KeyError`` (otherwise it keeps
+        its current value)."""
+        tensors, meta = load_file(file_path)
+        cores = cores_from_tensors(tensors)
+        for name in self.cores:
+            if name in cores:
+                self.params[name] = torch.as_tensor(cores[name]).to(
+                    dtype=self.dtype, device=self.device)
+            elif strict:
+                raise KeyError(f"missing tensor for core {name!r} in {file_path}")
+        return meta
+
+    @classmethod
+    def from_pretrained(
+        cls,
+        graph: Union[str, CircuitGraph],
+        file_path: Union[str, Path],
+        dtype: torch.dtype = torch.complex64,
+        strict: bool = True,
+        device: DeviceLike = "cuda",
+    ) -> "QCTN":
+        """A model of ``graph`` with its cores loaded from ``file_path``."""
+        model = cls(graph, dtype=dtype, device=device)
+        model.load_cores(file_path, strict=strict)
+        return model
 
     # -- surgery --------------------------------------------------------------
 

@@ -22,7 +22,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["CXX", "CXX_FLAGS", "build", "load_library"]
+__all__ = ["CXX", "CXX_FLAGS", "build", "load_library", "native_available"]
 
 _SRC = Path(__file__).resolve().parent / "pathfinder.cpp"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -81,3 +81,13 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = common + [last]
         fn.restype = I
     return lib
+
+
+def native_available() -> bool:
+    """Whether the path finder builds and loads here (building it if
+    needed); the contractions themselves raise instead of falling back."""
+    try:
+        load_library()
+    except (RuntimeError, OSError):
+        return False
+    return True

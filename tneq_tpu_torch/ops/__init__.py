@@ -14,6 +14,13 @@ from .complex_pair import (
     to_pair,
     unpair_tree,
 )
+from .einsum_spec import (
+    EinsumSpec,
+    core_only_spec,
+    siamese_spec,
+    two_network_spec,
+    with_inputs_spec,
+)
 from .contract import (
     abs_square,
     contract_cores,
@@ -26,9 +33,20 @@ from .contract import (
 )
 from .features import generate_data, hermite_phi, hermite_weights, measurement_matrices
 from .mps_sweep import is_mps_chain, mps_sweep_siamese_fn
+from .pairwise import log_abs_einsum, make_log_abs_overlap_fn
+from .row_scan import make_row_scan_log_overlap_fn, supports_row_scan
 from .scaling import Scaled, auto_scale, scaled_siamese_fn
 
 __all__ = [
+    "EinsumSpec",
+    "core_only_spec",
+    "siamese_spec",
+    "two_network_spec",
+    "with_inputs_spec",
+    "log_abs_einsum",
+    "make_log_abs_overlap_fn",
+    "make_row_scan_log_overlap_fn",
+    "supports_row_scan",
     "chain_pair_to_mv",
     "fused_chain_log_overlap",
     "fused_chain_supported",

@@ -7,10 +7,10 @@ Counterpart of ``tneq_tpu/ops/compiler.py`` (``compile_siamese``,
   takes the transfer sweep (``ops/mps_sweep.py``), through the B3/B4
   kernels when ``use_kernel`` (float32 and complex64 only: a caller in
   another dtype passes ``use_kernel=False``, as ``Trainer`` does);
+- a mesh whose ``model`` axis is > 1 (or ``mode='sliced'``) takes the
+  bond-sliced contraction over that axis (``parallel/mp.py``);
 - everything else takes the general einsum path (``ops/contract.py``:
   pairwise ``torch.einsum`` steps along the native path).
-
-The index-sliced strategy waits for the parallel layer (ROADMAP A, item 11).
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ def estimate_cost(graph: CircuitGraph, batch: int = 1) -> float:
 
 def compile_siamese(
     graph: CircuitGraph,
+    mesh=None,
     states_batched: bool = False,
     measure_extra_dims: int = 1,
     mode: str = "auto",
@@ -52,15 +53,25 @@ def compile_siamese(
     ``compute_fn(params, states, measures)`` as ``make_siamese_fn``'s.
 
     ``mode``: 'auto' (structural dispatch), 'mps_sweep', 'einsum',
-    'sliced'.  The sweep is named ``"mps_sweep_cuda"`` with the kernels
-    and ``"mps_sweep"`` without them; the einsum path ``"einsum_pairwise"``
-    (JAX's ``"einsum_xla"``).
+    'sliced' (needs ``mesh``, a ``parallel.make_mesh``).  The sweep is
+    named ``"mps_sweep_cuda"`` with the kernels and ``"mps_sweep"`` without
+    them; the einsum path ``"einsum_pairwise"`` (JAX's ``"einsum_xla"``);
+    the sliced contraction ``"sliced_shard_map"``, JAX's name.
     """
     if mode not in ("auto", "einsum", "mps_sweep", "sliced"):
         raise ValueError(f"unknown mode {mode!r}")
-    if mode == "sliced":
-        raise NotImplementedError(
-            "the index-sliced strategy waits for the parallel layer (ROADMAP A, item 11)"
+    if mode == "sliced" or (
+        mode == "auto" and mesh is not None and mesh.shape.get("model", 1) > 1
+    ):
+        # imported here: parallel/mp imports this package's modules
+        from ..parallel.mp import make_sliced_siamese_fn
+
+        if mesh is None:
+            raise ValueError("sliced strategy needs a mesh")
+        return (
+            make_sliced_siamese_fn(graph, mesh, states_batched=states_batched,
+                                   measure_extra_dims=measure_extra_dims),
+            "sliced_shard_map",
         )
     if mode == "mps_sweep" or (
         mode == "auto"

@@ -15,7 +15,7 @@ its device once, when it is built.
 
 from __future__ import annotations
 
-from typing import Callable, Mapping, NamedTuple
+from typing import Callable, Mapping, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -167,15 +167,20 @@ def pair_identity_cores(graph: CircuitGraph):
     return out
 
 
-def functional_step(loss_fn: Callable, optimizer: GradientTransformation) -> Callable:
+def functional_step(loss_fn: Callable, optimizer: GradientTransformation,
+                    reduce_grads: Optional[Callable] = None) -> Callable:
     """``step(params, opt_state, *args) -> (params, opt_state, metric)`` for
     ``loss_fn(params, *args) -> (loss, metric)``: ``torch.func`` gradient of
     the loss, then the optimizer's update.  Pure, so ``FitDrivers.batched``
-    can vmap it over lanes; the scalar scopes run the same function."""
+    can vmap it over lanes; the scalar scopes run the same function.
+    ``reduce_grads`` maps the gradients before the update (the sum over
+    ranks of a sliced fit, ``parallel/mp.py``)."""
     grad_fn = grad_and_value(loss_fn, has_aux=True)
 
     def step(params, opt_state, *args):
         grads, (_, metric) = grad_fn(params, *args)
+        if reduce_grads is not None:
+            grads = reduce_grads(grads)
         updates, opt_state = optimizer.update(grads, opt_state, params)
         return {k: params[k] + updates[k] for k in params}, opt_state, metric
 

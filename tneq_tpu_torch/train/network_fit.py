@@ -20,9 +20,10 @@ the LOG gradient exact), so it stays finite in float32 at any depth:
 
 The masked fit's stacked-real pair form (``complex_as_real=True``) takes
 neither sweep, as in JAX: its overlaps run the pair twin of the rescaled
-executor (``ops/complex_pair.make_pair_log_abs_overlap_fn``).  The
-multi-chip mesh waits for a later slice and raises ``NotImplementedError``
-naming the ROADMAP item that ports it.
+executor (``ops/complex_pair.make_pair_log_abs_overlap_fn``).  With a mesh
+whose ``model`` axis is > 1, every overlap is bond-sliced over that axis
+(``parallel/mp.make_sliced_log_overlap_fn``) and the chain sweep is off,
+as in JAX.
 """
 
 from __future__ import annotations
@@ -132,8 +133,10 @@ def network_log_fidelity(graph: CircuitGraph, params, target_params) -> torch.Te
     return 2.0 * log_ov - log_oo - log_tt
 
 
-def network_fidelity(graph: CircuitGraph, params, target_params) -> torch.Tensor:
-    """Fidelity between two same-graph networks via overlaps only."""
+def network_fidelity(graph: CircuitGraph, params, target_params,
+                     target_norm=None) -> torch.Tensor:
+    """Fidelity between two same-graph networks via overlaps only.
+    ``target_norm`` is accepted and ignored, as in JAX."""
     return torch.exp(network_log_fidelity(graph, params, target_params))
 
 
@@ -147,6 +150,8 @@ def make_masked_network_fidelity_fit(
     jit_scope: str = "fit",
     sync_every: int = 1,
     mesh=None,
+    model_axis: str = "model",
+    slice_bonds=None,
     identities=None,
     matmul_precision: str = "highest",
     device: DeviceLike = "cuda",
@@ -165,6 +170,12 @@ def make_masked_network_fidelity_fit(
     ``sync_every`` steps, 'chunk' after whole ``sync_every``-step chunks
     (see ``_fit_driver``).  ``identities`` overrides the substitution cores
     (MPS experiments pass ``transparent_cores(..., pairing='kind')``).
+    ``mesh`` (``parallel.make_mesh``) with a ``model_axis`` > 1 bond-slices
+    every overlap, ``prepare``'s ⟨t,t⟩ included, over that axis;
+    ``slice_bonds`` overrides the bond choice.  Across ``torch.distributed``
+    ranks (one per position) the step sums the parameter gradients over the
+    ranks before the update, and every rank's optimizer must be seeded
+    alike (the SGD-G retraction draws), so the replicas stay equal.
     ``matmul_precision`` ('highest' default: full f32, TF32 off; 'high' /
     'default') holds within the fit only.  ``device``: where the
     substitution cores live — the params and targets handed to ``fit`` must
@@ -174,18 +185,23 @@ def make_masked_network_fidelity_fit(
     chunk_steps=0)`` runs one lane per row of ``masks`` in lockstep from
     ``params``, the target prepared once and shared by the lanes.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "bond-sliced multi-device overlaps need parallel/mp.py "
-            "(ROADMAP queue A, item 11)"
-        )
+    use_mesh = mesh is not None and mesh.shape[model_axis] > 1
     mid_shapes = {c.shape for c in graph.cores[1:-1]}
     bonds = {graph.cores[0].shape[-1], graph.cores[-1].shape[0]}
     for s in mid_shapes:
         bonds |= {s[0], s[-1]}
-    use_chain = (not complex_as_real and _is_chain(graph) and len(mid_shapes) <= 1
-                 and len(bonds) == 1)
-    if complex_as_real:
+    use_chain = (not complex_as_real and not use_mesh and _is_chain(graph)
+                 and len(mid_shapes) <= 1 and len(bonds) == 1)
+    reduce_grads = None
+    if use_mesh:
+        # imported here: parallel/mp imports train/losses, whose package
+        # imports this module
+        from ..parallel.mp import make_sliced_log_overlap_fn
+
+        generic_overlap = make_sliced_log_overlap_fn(graph, mesh, slice_bonds, model_axis,
+                                                     pair=complex_as_real)
+        reduce_grads = generic_overlap.reduce_gradients if generic_overlap.ranks else None
+    elif complex_as_real:
         generic_overlap = make_pair_log_abs_overlap_fn(graph)
     else:
         generic_overlap = None if use_chain else _overlap_fn(graph)
@@ -228,7 +244,7 @@ def make_masked_network_fidelity_fit(
             return target_eff_n, log_abs_overlap(target_eff_n, target_eff_n)
 
     drivers = FitDrivers(
-        functional_step(neg_log_f, optimizer), optimizer, max_steps, sync_every,
+        functional_step(neg_log_f, optimizer, reduce_grads), optimizer, max_steps, sync_every,
         running=lambda nlf: nlf > neg_log_tol, init_metric=1e9,
         matmul_precision=matmul_precision,
     )
@@ -244,6 +260,11 @@ def make_masked_network_fidelity_fit(
     def batched(params, masks, target_params, target_mask, chunk_steps: int = 0) -> FitResult:
         """Lockstep lanes over mask rows (see ``FitDrivers.batched``); the
         target is prepared once and shared by the lanes."""
+        if reduce_grads is not None:
+            raise NotImplementedError(
+                "lanes of a fit sliced across ranks wait for the data-parallel "
+                "layer (ROADMAP A, item 11b)"
+            )
         target_eff_n, log_tt = prepare(target_params, target_mask)
         p_b, o_b, steps, nlf_b = drivers.batched(params, masks, target_eff_n, log_tt,
                                                  chunk_steps=chunk_steps)
