@@ -128,7 +128,7 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    and checkpoints, one JSON line per part.  (a) Phase 9 (b)'s flagship
    with ``make_mesh({"model": 2}, devices=["cuda:0"] * 2)``: −log F at
    its fresh cores against the unsliced row sweep (``TOL_LANE``), one
-   log-overlap's gradient against the unsliced one, 10 fit steps (steps/s,
+   log-overlap's gradient against the unsliced one, 5 fit steps (steps/s,
    launches per step, idle share, peak memory beside phase 9 (b)'s), B1/B2
    never launched (the sliced fit turns the chain route off), and one step
    at 4 positions (two bonds).  (b) Two gloo ranks spawned on cuda:0, one
@@ -140,7 +140,29 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    ``train_single_node --save`` at its defaults (B4 = 2 launches per
    step), the file read back by ``QCTN.from_pretrained`` on the card bit
    for bit, and the cli cell's ``Trainer`` resumed from a
-   ``CheckpointManager`` continuing the uninterrupted run's losses.
+   ``CheckpointManager`` continuing the uninterrupted run's losses;
+14. distributed — the rest of the parallel layer, one JSON line per part,
+   with gloo ranks spawned on cuda:0.  (a) ``DistributedTrainer`` on the
+   born_rule cell (``mps_graph(8, 8, phys=4)``, K 4, float32, batch 512,
+   SGD-G), 20 steps in one process and on 2 ranks of 256 rows: each rank's
+   step-0 loss and averaged gradient against one process, the replicas
+   bit-equal, B3 2 launches per step per rank; steps/s, idle share, peak
+   memory, the all-reduce's share of the step.  (b) ``python -m
+   tneq_tpu_torch.parallel.trainer`` at its defaults (6-qubit MPS, dim 2,
+   complex64): the card's loss against the host's at the card's cores, 100
+   steps on card (B4 2 per step) and host, and ``--model-axis 2
+   --checkpoint-dir ... --resume`` continuing the uninterrupted losses.
+   (c) FSDP of the headline chain (``mps_graph(32, dim=16)``, 31 cores
+   padded to 32) over ``{"model": 2}``, 10 steps in one process and on 2
+   ranks: the step-0 loss and each rank's gradient rows against the
+   unstacked ones, each rank's state at most 0.55 of one process's, the
+   identity pad bit-exact, B1 3 and B2 2 launches per step; steps/s, idle
+   share, peak memory.  (d) ``check_mesh_health`` over (a)'s ranks with
+   each primitive's time and route, and the gloo primitives the port does
+   not use, on CUDA tensors (point-to-point is refused, so the ring goes
+   through ``broadcast``).  (e)
+   ``parallel/dryrun.dryrun_multichip(2)`` on cuda:0 and
+   ``bench/multiproc_dryrun``'s four ranks, its loss against one process.
 
 Then a ``timing`` line (seconds per phase), the ``kernels`` summary line,
 the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -224,8 +246,8 @@ NETWORK_CLI_VALIDATE_STEPS = 400
 # prune pass gives each candidate NETWORK_PRUNE_STEPS steps (accepted
 # candidates exit at once, rejected ones stay far above tol), which the
 # host repeats.
-NETWORK_VALIDATE_STEPS = 150
-NETWORK_PRUNE_STEPS = 3
+NETWORK_VALIDATE_STEPS = 50
+NETWORK_PRUNE_STEPS = 1
 # the batched phase: lane-batched B1/B2 at the bench shape; the batched
 # prune at lane_chunk 8 and k = 16 steps per exit test (8 in network mode,
 # where a lane step takes ~0.3 s), cut to one chunk of steps per piece
@@ -288,7 +310,7 @@ TOL_GA_FARM = 1e-5
 # host, within TOL_GA30 of max(1, |-log F|) (a sum of 29 float32 log-scales)
 GA30_QUBITS = 30
 GA30_GENERATIONS = 2
-GA30_STEPS = 30
+GA30_STEPS = 20
 TOL_GA30 = 1e-4
 
 # the sliced phase (13): the flagship bond-sliced over a model axis on one
@@ -305,13 +327,51 @@ TOL_GA30 = 1e-4
 # TOL_RESUME (relative)
 SLICED_POSITIONS = 2
 SLICED_WIDE = 4
-SLICED_STEPS = 10
+SLICED_STEPS = 5
 TOL_SLICED_GRAD = 1e-4
 RANK_STEPS = 3
 TOL_RANK_VALUE = 1e-6
 TOL_RANK_GRAD = 1e-5
 RESUME_STEPS = 3
 TOL_RESUME = 1e-5
+
+# the distributed phase (14).  (a) the born_rule cell as a DistributedConfig,
+# DP_STEPS steps in one process and on DP_WORLD gloo ranks sharing cuda:0:
+# each rank's step-0 loss and gradient (its rows, averaged over the data
+# line) within TOL_DP of one process (relative; the gradient max-abs
+# normalised), the replicas bit-equal after the run, B3 2 launches per step
+# per rank; the all-reduce timed alone over AR_REPS calls.  (b) the trainer
+# CLI at its defaults: the card's loss within TOL_STEP0 of the host's at the
+# card's cores for CHECK_STEPS steps, TRAINER_CLI_STEPS steps on the card
+# (B4 2 per step) and on the host, and a model axis of 2 run to RESUME_AT[0]
+# steps and resumed to RESUME_AT[1], its losses within TOL_RESUME of the
+# uninterrupted run's.  (c) FSDP of the headline chain (31 cores padded to
+# 32) on FSDP_POSITIONS positions, FSDP_STEPS steps, one process and as many
+# gloo ranks: the step-0 loss and each process's gradient rows within
+# TOL_FSDP of the unstacked ones (relative; max-abs normalised), each rank's
+# stacked params and momentum at most FSDP_BYTES_SHARE of one process's,
+# the identity pad bit-exact, B1 3 and B2 2 launches per step.  (d) the
+# health check over (a)'s ranks (every check ok, the routes
+# GLOO_CUDA_ROUTES), and gloo's GLOO_PROBES primitives on CUDA tensors,
+# each group in a process pair of its own.  (e)
+# dryrun_multichip on DRYRUN_POSITIONS positions of cuda:0, and
+# bench/multiproc_dryrun's four ranks, its loss within TOL_RANK_VALUE of the
+# same step in one process
+DP_WORLD = 2
+DP_STEPS = 20
+AR_REPS = 10
+TOL_DP = 1e-5
+TRAINER_CLI_STEPS = 100
+RESUME_AT = (6, 9)
+FSDP_QUBITS, FSDP_BOND = 32, 16
+FSDP_POSITIONS = 2
+FSDP_STEPS = 10
+TOL_FSDP = 1e-5
+FSDP_BYTES_SHARE = 0.55
+GLOO_PROBES = (("all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single"),
+               ("send",), ("batch_isend_irecv",))
+GLOO_CUDA_ROUTES = {"all_gather": "all_gather", "psum": "all_reduce", "ppermute": "broadcast"}
+DRYRUN_POSITIONS = 2
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -2317,6 +2377,41 @@ def _overlap_value_grad(fn, params, t_eff):
     return float(val.detach()), dict(zip(x, grads))
 
 
+def _init_gloo(rank: int, world: int, port: int) -> None:
+    """This spawned process as gloo rank ``rank`` of ``world``, on cuda:0."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank)
+
+
+def _spawn_ranks(target, world: int, *args, timeout: float = 600) -> list:
+    """``target(rank, port, queue, *args)`` in ``world`` spawned processes:
+    what each put on the queue, by rank; fails if a rank failed."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    port = _free_port()
+    procs = [ctx.Process(target=target, args=(r, port, queue) + args) for r in range(world)]
+    for proc in procs:
+        proc.start()
+    try:
+        outs = sorted((queue.get(timeout=timeout) for _ in procs), key=lambda o: o["rank"])
+    finally:
+        for proc in procs:
+            proc.join(timeout=60)
+            if proc.is_alive():
+                proc.kill()
+                proc.join(timeout=10)
+    failed = [o["failed"] for o in outs if "failed" in o]
+    check(not failed and all(proc.exitcode == 0 for proc in procs),
+          f"{target.__name__}: {failed}, exit codes {[proc.exitcode for proc in procs]}")
+    return outs
+
+
 def _sliced_rank_main(rank: int, port: int, queue) -> None:
     """Phase 13 (b) on one of two gloo ranks sharing cuda:0: the sliced
     log-overlap's value and summed gradient, then ``RANK_STEPS`` fit steps."""
@@ -2324,9 +2419,7 @@ def _sliced_rank_main(rank: int, port: int, queue) -> None:
     import torch.distributed as dist
 
     try:
-        torch.cuda.set_device(0)
-        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                                world_size=SLICED_POSITIONS, rank=rank)
+        _init_gloo(rank, SLICED_POSITIONS, port)
         from tneq_tpu_torch.parallel import make_mesh
         from tneq_tpu_torch.parallel.mp import make_sliced_log_overlap_fn
 
@@ -2363,8 +2456,6 @@ def _free_port() -> int:
 def phase_sliced(smi: str, unsliced: dict, tmp: str) -> list:
     """Phase 13: bond-sliced overlaps (parts a-c) and checkpoints (d), one
     JSON line per part."""
-    import multiprocessing
-
     import numpy as np
     import torch
 
@@ -2468,24 +2559,7 @@ def phase_sliced(smi: str, unsliced: dict, tmp: str) -> list:
 
     # (b) two gloo ranks on cuda:0 against the one-process form of (a)
     t_part = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    queue = ctx.Queue()
-    port = _free_port()
-    procs = [ctx.Process(target=_sliced_rank_main, args=(r, port, queue))
-             for r in range(SLICED_POSITIONS)]
-    for proc in procs:
-        proc.start()
-    try:
-        outs = sorted((queue.get(timeout=600) for _ in procs), key=lambda o: o["rank"])
-    finally:
-        for proc in procs:
-            proc.join(timeout=60)
-            if proc.is_alive():
-                proc.kill()
-                proc.join(timeout=10)
-    failed = [o["failed"] for o in outs if "failed" in o]
-    check(not failed and all(proc.exitcode == 0 for proc in procs),
-          f"sliced ranks: {failed}, exit codes {[proc.exitcode for proc in procs]}")
+    outs = _spawn_ranks(_sliced_rank_main, SLICED_POSITIONS)
     one_grads = {k: v.cpu().numpy() for k, v in grads.items()}
     g_scale = max(float(np.abs(v).max()) for v in one_grads.values())
     rank_rec = []
@@ -2614,9 +2688,542 @@ def phase_sliced(smi: str, unsliced: dict, tmp: str) -> list:
     return recs
 
 
+def _dp_config():
+    """Phase 14 (a): the born_rule cell as a ``DistributedConfig``."""
+    from tneq_tpu_torch.graph import mps_graph
+    from tneq_tpu_torch.parallel import DistributedConfig
+
+    B, D, K = BORN_SHAPE
+    return DistributedConfig(graph=mps_graph(8, D, phys=K), K=K, dtype="float32",
+                             batch_size=B, method="sgdg", learning_rate=1e-2, momentum=0.9,
+                             max_steps=DP_STEPS, log_every=0)
+
+
+def _dp_step0(tr, params, x, reduce=None):
+    """The step-0 loss and gradient of ``tr`` at ``params`` on this
+    process's rows of ``x`` (averaged over the data line by ``reduce``)."""
+    import torch
+
+    from tneq_tpu_torch.parallel import data_sharding
+
+    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
+    loss = tr.trainer.loss(leaves, tr.states, data_sharding(tr.mesh).local(x))
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    loss = loss.detach()
+    if reduce is not None:
+        loss, grads = reduce(loss, grads)
+    return float(loss), grads
+
+
+def _dp_run(tr, params, data) -> dict:
+    """``DistributedTrainer.train`` for DP_STEPS steps, timed, with its B3
+    launches, peak memory and a profiled window of steps."""
+    import torch
+
+    from tneq_tpu_torch.ops import transfer_step as ts
+
+    tr._train_step(params, tr.optimizer.init(params), data[0])  # one-time work untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    p, stats = tr.train(params, data)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ts.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    box = {"p": p, "o": tr.optimizer.init(p), "i": 0}
+
+    def one_step():
+        box["p"], box["o"], loss = tr._train_step(box["p"], box["o"], data[box["i"] % len(data)])
+        box["i"] += 1
+        float(loss)  # the loop's host read of the loss
+
+    return {"params": {k: v.cpu().numpy() for k, v in p.items()}, "losses": stats.losses,
+            "seconds": dt, "steps_per_s": DP_STEPS / dt, "launches": counts,
+            "max_memory_allocated_bytes": peak,
+            "profile": _profile_steps(one_step, dt / DP_STEPS * 1e3, steps=3)}
+
+
+def _dp_rank_main(rank: int, port: int, queue) -> None:
+    """Phase 14 (a) and (d) on one of two gloo ranks sharing cuda:0: the
+    step-0 loss and gradient of the rank's 256 rows averaged over the data
+    line, the all-reduce alone, DP_STEPS trainer steps, then
+    ``check_mesh_health``."""
+    import torch
+    import torch.distributed as dist
+
+    try:
+        _init_gloo(rank, DP_WORLD, port)
+        from tneq_tpu_torch.model.qctn import init_params
+        from tneq_tpu_torch.parallel import DistributedTrainer, check_mesh_health
+        from tneq_tpu_torch.parallel.dp import _mean_over_rows
+
+        cfg = _dp_config()
+        tr = DistributedTrainer(cfg, devices=["cuda:0"] * DP_WORLD)
+        params = init_params(tr.graph, cfg.seed, torch.float32, device="cuda")
+        data = tr.prepare_data()
+        reduce = _mean_over_rows(tr.mesh, "data")
+        loss0, grads0 = _dp_step0(tr, params, data[0], reduce)
+        # the gradient's all-reduce alone (one flat buffer) and the loss's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(AR_REPS):
+            reduce(torch.tensor(loss0, device="cuda"), grads0)
+        torch.cuda.synchronize()
+        ar_ms = (time.perf_counter() - t0) / AR_REPS * 1e3
+        run = _dp_run(tr, params, data)
+        health = check_mesh_health(tr.mesh, verbose=False)
+        queue.put({"rank": rank, "loss0": loss0,
+                   "grads0": {k: v.cpu().numpy() for k, v in grads0.items()},
+                   "all_reduce_ms": ar_ms, "run": run, "health": health,
+                   "grad_bytes": sum(g.numel() * g.element_size() for g in grads0.values())})
+    except Exception as e:
+        queue.put({"rank": rank, "failed": repr(e)})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _gloo_probe(prim: str, rank: int) -> bool:
+    """One gloo primitive on CUDA tensors between ranks 0 and 1: whether it
+    gave the right values (it raises, or aborts the process, when
+    refused)."""
+    import torch
+    import torch.distributed as dist
+
+    peer = 1 - rank
+    x = torch.full((2,), float(rank), device="cuda")
+    y = torch.empty_like(x)
+    if prim == "all_gather_into_tensor":
+        out = torch.empty(4, device="cuda")
+        dist.all_gather_into_tensor(out, x)
+        return out.tolist() == [0.0, 0.0, 1.0, 1.0]
+    if prim == "reduce_scatter_tensor":
+        dist.reduce_scatter_tensor(y, torch.arange(4.0, device="cuda") + rank)
+        return y.tolist() == [1.0, 3.0] if rank == 0 else y.tolist() == [5.0, 7.0]
+    if prim == "all_to_all_single":
+        dist.all_to_all_single(y, torch.arange(2.0, device="cuda") + 10 * rank)
+        return y.tolist() == [rank, 10.0 + rank]
+    if prim == "send":
+        if rank == 0:
+            dist.send(x, peer)
+            return True  # the sender receives nothing
+        dist.recv(y, peer)
+    else:  # batch_isend_irecv
+        for req in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, peer),
+                                           dist.P2POp(dist.irecv, y, peer)]):
+            req.wait()
+    return bool(y[0] == peer)
+
+
+def _gloo_probe_main(rank: int, port: int, queue, prims) -> None:
+    """Phase 14 (d): gloo primitives on CUDA tensors, in a group of their
+    own (a refusal may abort the process or break the group)."""
+    _init_gloo(rank, 2, port)
+    for prim in prims:
+        try:
+            queue.put({"rank": rank, "prim": prim, "accepted": _gloo_probe(prim, rank)})
+        except RuntimeError as e:
+            queue.put({"rank": rank, "prim": prim, "accepted": False, "error": str(e)[:200]})
+
+
+def _gloo_probes():
+    """Start the probes, a pair of processes per group of GLOO_PROBES:
+    ``(procs, queue)``."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    queue = ctx.Queue()
+    procs = {}
+    for prims in GLOO_PROBES:
+        port = _free_port()
+        procs[prims] = [ctx.Process(target=_gloo_probe_main, args=(r, port, queue, prims))
+                        for r in range(2)]
+        for proc in procs[prims]:
+            proc.start()
+    return procs, queue
+
+
+def _gloo_probe_results(procs, queue) -> dict:
+    """Each probed primitive: refused or not, its processes' exit codes and
+    errors (the queue drained while the processes end)."""
+    import queue as queue_mod
+
+    every = [proc for ps in procs.values() for proc in ps]
+    seen = []
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        try:
+            seen.append(queue.get(timeout=0.5))
+        except queue_mod.Empty:
+            if not any(proc.is_alive() for proc in every):
+                break
+    for proc in every:
+        proc.join(timeout=10)
+        if proc.is_alive():
+            proc.kill()
+            proc.join(timeout=10)
+    out = {}
+    for prims, ps in procs.items():
+        for prim in prims:
+            mine = [o for o in seen if o["prim"] == prim]
+            out[prim] = {"refused": not (len(mine) == 2 and all(o["accepted"] for o in mine)),
+                         "exit_codes": [proc.exitcode for proc in ps],
+                         "errors": sorted({o["error"] for o in mine if "error" in o})}
+    return out
+
+
+def _fsdp_inputs(mesh):
+    """Phase 14 (c): the headline chain's FSDP step on ``mesh``, and its
+    prepared params and target."""
+    import torch
+
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params
+    from tneq_tpu_torch.parallel.fsdp import make_fsdp_network_fit_step
+
+    g = parse_graph(mps_graph(FSDP_QUBITS, dim=FSDP_BOND))
+    step, prepare, opt = make_fsdp_network_fit_step(g, mesh)
+    p = init_params(g, 0, torch.float32, device="cuda")
+    t = init_params(g, 1, torch.float32, device="cuda")
+    return g, step, opt, p, t, prepare(p), prepare(t)
+
+
+def _fsdp_run(mesh) -> dict:
+    """The step-0 loss and this process's gradient rows, then FSDP_STEPS
+    steps: timed, B1/B2 launches, peak memory, state bytes, the identity
+    pad, a profiled window."""
+    import torch
+
+    from tneq_tpu_torch.ops import chain_overlap as co
+
+    g, step, opt, _, _, arrays, t_arrays = _fsdp_inputs(mesh)
+    loss0, grads = step.value_and_grad(arrays, t_arrays)
+    o = opt.init(arrays)
+    state_bytes = sum(t.numel() * t.element_size() for t in tuple(arrays) + tuple(o.momentum))
+    step(arrays, opt.init(arrays), t_arrays)  # one-time work untimed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    co.reset_launch_counts()
+    losses = []
+    t0 = time.perf_counter()
+    for _ in range(FSDP_STEPS):
+        arrays, o, loss = step(arrays, o, t_arrays)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = co.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ident = torch.eye(FSDP_BOND ** 2, device="cuda").reshape((FSDP_BOND,) * 4)
+    box = {"a": arrays, "o": o}
+
+    def one_step():
+        box["a"], box["o"], m = step(box["a"], box["o"], t_arrays)
+        float(m)
+
+    return {"loss0": float(loss0), "grad_rows": grads[0].cpu().numpy(),
+            "rows": arrays[0].shape[0], "state_bytes": state_bytes, "losses": losses,
+            "last_row_identity": bool(torch.equal(arrays[0][-1], ident)),
+            "seconds": dt, "steps_per_s": FSDP_STEPS / dt, "launches": counts,
+            "max_memory_allocated_bytes": peak,
+            "profile": _profile_steps(one_step, dt / FSDP_STEPS * 1e3, steps=2)}
+
+
+def _fsdp_rank_main(rank: int, port: int, queue) -> None:
+    """Phase 14 (c) on one of two gloo ranks sharing cuda:0."""
+    import torch.distributed as dist
+
+    try:
+        _init_gloo(rank, FSDP_POSITIONS, port)
+        from tneq_tpu_torch.parallel import make_mesh
+
+        mesh = make_mesh({"model": FSDP_POSITIONS}, devices=["cuda:0"] * FSDP_POSITIONS)
+        queue.put({"rank": rank, **_fsdp_run(mesh)})
+    except Exception as e:
+        queue.put({"rank": rank, "failed": repr(e)})
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _max_rel(got: dict, ref: dict) -> float:
+    import numpy as np
+
+    scale = max(float(np.abs(v).max()) for v in ref.values())
+    return max(float(np.abs(got[k] - ref[k]).max()) for k in ref) / scale
+
+
+def _run_summary(run: dict) -> dict:
+    return {k: run[k] for k in ("seconds", "steps_per_s", "launches",
+                                "max_memory_allocated_bytes", "profile")}
+
+
+def phase_distributed(smi: str, tmp: str) -> list:
+    """Phase 14: the data-parallel trainer (a), the trainer CLI (b), FSDP
+    at the headline width (c), the mesh health check and gloo's routes (d)
+    and the dry runs (e), one JSON line per part."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.model.qctn import init_params, params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.parallel import DistributedTrainer, make_mesh
+
+    recs = []
+    # (a) the data-parallel trainer at the born_rule width
+    t_part = time.perf_counter()
+    cfg = _dp_config()
+    tr = DistributedTrainer(cfg, devices=["cuda:0"])
+    params = init_params(tr.graph, cfg.seed, torch.float32, device="cuda")
+    data = tr.prepare_data()
+    loss0, grads0 = _dp_step0(tr, params, data[0])
+    grads0 = {k: v.cpu().numpy() for k, v in grads0.items()}
+    one = _dp_run(tr, params, data)
+    check(one["launches"]["transfer_step"] == 2 * DP_STEPS,
+          f"dp_trainer, one process: B3 launches {one['launches']}, expected {2 * DP_STEPS}")
+    dp_outs = _spawn_ranks(_dp_rank_main, DP_WORLD)
+    ranks = []
+    for o in dp_outs:
+        l_err = abs(o["loss0"] - loss0) / abs(loss0)
+        g_err = _max_rel(o["grads0"], grads0)
+        r = o["run"]
+        check(l_err <= TOL_DP and g_err <= TOL_DP,
+              f"dp_trainer rank {o['rank']}: step-0 loss err {l_err}, gradient err {g_err}")
+        check(r["launches"]["transfer_step"] == 2 * DP_STEPS,
+              f"dp_trainer rank {o['rank']}: B3 launches {r['launches']}")
+        check(all(math.isfinite(x) for x in r["losses"]), f"dp_trainer rank {o['rank']}: losses")
+        ranks.append({"rank": o["rank"], "loss0_err": l_err, "grad0_err": g_err,
+                      "all_reduce_ms": o["all_reduce_ms"],
+                      "all_reduce_share_of_step": o["all_reduce_ms"] * r["steps_per_s"] / 1e3,
+                      "loss_first_last": [r["losses"][0], r["losses"][-1]],
+                      **_run_summary(r)})
+    p0, p1 = dp_outs[0]["run"]["params"], dp_outs[1]["run"]["params"]
+    equal = all(np.array_equal(p0[k], p1[k]) for k in p0)
+    check(equal, f"dp_trainer: the replicas' params differ after {DP_STEPS} steps")
+    rec_a = {"phase": "distributed", "part": "a_dp_trainer",
+             "program": f"DistributedTrainer: mps_graph(8, 8, phys=4), K 4, float32, batch "
+                        f"{cfg.batch_size}, sgdg lr 1e-2 momentum 0.9, {DP_STEPS} steps; one "
+                        f"process (data 1), then {DP_WORLD} gloo ranks on cuda:0 (data "
+                        f"{DP_WORLD}, {cfg.batch_size // DP_WORLD} rows each)",
+             "strategy": tr.strategy, "loss0": loss0, "tolerance": TOL_DP,
+             "one_process": {"loss_first_last": [one["losses"][0], one["losses"][-1]],
+                             **_run_summary(one)},
+             "ranks": ranks, "replicas_bit_equal": equal,
+             "ranks_vs_one_process_params_max_rel": _max_rel(p0, one["params"]),
+             "grad_buffer_bytes": dp_outs[0]["grad_bytes"],
+             "launches": one["launches"]["transfer_step"]
+             + sum(o["run"]["launches"]["transfer_step"] for o in dp_outs),
+             "seconds": time.perf_counter() - t_part, "card": smi}
+    emit(rec_a)
+    recs.append(rec_a)
+
+    # (b) the trainer CLI at its defaults: the card's loss against the
+    # host's at the card's cores, the CLI's run (B4), and a resume
+    from tneq_tpu_torch.graph import example_graph
+    from tneq_tpu_torch.ops import transfer_step as ts
+    from tneq_tpu_torch.parallel.trainer import DistributedConfig
+    from tneq_tpu_torch.parallel.trainer import main as dist_main
+
+    t_part = time.perf_counter()
+    cli_cfg = DistributedConfig(graph=example_graph(6, "mps", 2), max_steps=CHECK_STEPS,
+                                log_every=0)
+    tc = DistributedTrainer(cli_cfg, devices=["cuda"])
+    th = DistributedTrainer(cli_cfg, devices=["cpu"])
+    params = init_params(tc.graph, cli_cfg.seed, torch.complex64, device="cuda")
+    data_c, data_h = tc.prepare_data(), th.prepare_data()
+    opt = tc.optimizer.init(params)
+    card, host_at_card = [], []
+    for i in range(CHECK_STEPS):
+        cores = params_to_numpy(params)
+        params, opt, loss = tc._train_step(params, opt, data_c[i % len(data_c)])
+        card.append(float(loss))
+        with torch.no_grad():
+            host_at_card.append(float(th.trainer.loss(params_from_numpy(cores, "cpu"), th.states,
+                                                      data_h[i % len(data_h)])))
+    rel = max(abs(c - h) / abs(h) for c, h in zip(card, host_at_card))
+    check(rel <= TOL_STEP0, f"trainer_cli: card loss vs host loss at the same cores, rel {rel}")
+    ts.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        stats = dist_main(["--steps", str(TRAINER_CLI_STEPS)])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = ts.launch_counts()
+    check(counts == {"transfer_step": 0, "transfer_step_complex": 2 * TRAINER_CLI_STEPS}
+          and all(math.isfinite(x) for x in stats.losses),
+          f"trainer_cli: launch counts {counts}, expected B4 = {2 * TRAINER_CLI_STEPS}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        host = dist_main(["--steps", str(TRAINER_CLI_STEPS), "--device", "cpu"])
+    dt_host = time.perf_counter() - t0
+    ck = f"{tmp}/trainer_ckpt"
+    first, last = RESUME_AT
+    argv = ["--model-axis", "2", "--checkpoint-dir", ck]
+    with contextlib.redirect_stdout(sys.stderr):
+        dist_main(["--steps", str(first)] + argv)
+        resumed = dist_main(["--steps", str(last), "--resume"] + argv)
+        full = dist_main(["--model-axis", "2", "--steps", str(last)])
+    resume_err = max(abs(a - b) / abs(b) for a, b in zip(resumed.losses, full.losses[first:]))
+    check(len(resumed.losses) == last - first and resume_err <= TOL_RESUME,
+          f"trainer_cli resume: {resumed.losses} vs {full.losses[first:]}")
+    rec_b = {"phase": "distributed", "part": "b_trainer_cli",
+             "program": "python -m tneq_tpu_torch.parallel.trainer at its defaults (mps 6 "
+                        "qubits, dim 2, complex64, batch 32 x 4, sgdg lr 1e-2 momentum 0.9)",
+             "strategy": tc.strategy, "first_losses_card": card,
+             "host_loss_at_card_cores_rel_err_max": rel, "tolerance": TOL_STEP0,
+             "steps": TRAINER_CLI_STEPS, "seconds": dt, "steps_per_s": TRAINER_CLI_STEPS / dt,
+             "loss_first_last": [stats.losses[0], stats.losses[-1]],
+             "host": {"seconds": dt_host, "loss_first_last": [host.losses[0],
+                                                               host.losses[-1]]},
+             "launches": counts,
+             "launches_per_step": {k: v / TRAINER_CLI_STEPS for k, v in counts.items()},
+             "resume": {"argv": argv[:2], "steps": [first, last],
+                        "losses_resumed_uninterrupted": [resumed.losses, full.losses[first:]],
+                        "rel_err": resume_err, "tolerance": TOL_RESUME},
+             "seconds_part": time.perf_counter() - t_part, "card": smi}
+    emit(rec_b)
+    recs.append(rec_b)
+
+    # (c) FSDP at the headline width: one process, then two gloo ranks
+    from tneq_tpu_torch.parallel.fsdp import stack_params
+    from tneq_tpu_torch.train.network_fit import network_log_fidelity
+
+    t_part = time.perf_counter()
+    mesh = make_mesh({"model": FSDP_POSITIONS}, devices=["cuda:0"] * FSDP_POSITIONS)
+    g, _, _, p, t, _, _ = _fsdp_inputs(mesh)
+    leaves = {k: v.clone().requires_grad_() for k, v in p.items()}
+    nlf = -network_log_fidelity(g, leaves, t)
+    ref_g = dict(zip(leaves, torch.autograd.grad(nlf, list(leaves.values()))))
+    nlf = float(nlf.detach())
+    stacked_ref = stack_params(g, ref_g, FSDP_POSITIONS).arrays[0].cpu().numpy()
+    one_f = _fsdp_run(mesh)
+    outs = _spawn_ranks(_fsdp_rank_main, FSDP_POSITIONS)
+    per_step = {"chain_sweep_fwd": 3 * FSDP_STEPS, "chain_sweep_bwd": 2 * FSDP_STEPS}
+    n_real = g.ncores
+    scale = float(np.abs(stacked_ref[:n_real]).max())
+    franks = []
+    for run in [one_f] + outs:
+        who = "one process" if run is one_f else f"rank {run['rank']}"
+        rows = run["rows"]
+        lo = 0 if run is one_f else run["rank"] * rows
+        real = min(rows, n_real - lo)  # this process's rows that hold a core
+        l_err = abs(run["loss0"] - nlf) / abs(nlf)
+        g_err = float(np.abs(run["grad_rows"][:real] - stacked_ref[lo:lo + real]).max()) / scale
+        check(l_err <= TOL_FSDP and g_err <= TOL_FSDP
+              and not np.count_nonzero(run["grad_rows"][real:]),
+              f"fsdp {who}: step-0 loss err {l_err}, gradient rows err {g_err}, the pad "
+              f"rows' gradient nonzero: {bool(np.count_nonzero(run['grad_rows'][real:]))}")
+        check(run["launches"] == per_step, f"fsdp {who}: launches {run['launches']}")
+        # the pad (row 31) is the last row of the process that holds it
+        pad_kept = run["last_row_identity"] if real < rows else None
+        check(pad_kept is not False and all(math.isfinite(x) for x in run["losses"]),
+              f"fsdp {who}: identity pad kept {pad_kept}, losses {run['losses']}")
+        if run is not one_f:
+            share = run["state_bytes"] / one_f["state_bytes"]
+            check(share <= FSDP_BYTES_SHARE, f"fsdp {who}: state bytes share {share}")
+            franks.append({"rank": run["rank"], "loss0_err": l_err, "grad_rows_err": g_err,
+                           "rows": rows, "pad_identity": pad_kept,
+                           "state_bytes": run["state_bytes"],
+                           "state_bytes_share": share,
+                           "loss_first_last": [run["losses"][0], run["losses"][-1]],
+                           **_run_summary(run)})
+    rec_c = {"phase": "distributed", "part": "c_fsdp_headline",
+             "program": f"make_fsdp_network_fit_step(mps_graph({FSDP_QUBITS}, dim={FSDP_BOND}), "
+                        f"make_mesh({{'model': {FSDP_POSITIONS}}}, devices=['cuda:0'] * "
+                        f"{FSDP_POSITIONS})), float32, {FSDP_STEPS} steps; 31 cores padded to "
+                        f"32; one process, then {FSDP_POSITIONS} gloo ranks on cuda:0",
+             "neg_log_f_unstacked": nlf, "tolerance": TOL_FSDP,
+             "one_process": {"loss0_err": abs(one_f["loss0"] - nlf) / abs(nlf),
+                             "pad_identity": one_f["last_row_identity"],
+                             "state_bytes": one_f["state_bytes"],
+                             "loss_first_last": [one_f["losses"][0], one_f["losses"][-1]],
+                             **_run_summary(one_f)},
+             "ranks": franks, "bytes_share_bound": FSDP_BYTES_SHARE,
+             "launches": {k: one_f["launches"][k] + sum(o["launches"][k] for o in outs)
+                          for k in per_step},
+             "seconds": time.perf_counter() - t_part, "card": smi}
+    emit(rec_c)
+    recs.append(rec_c)
+
+    # (d) the health check over (a)'s ranks, and gloo's point-to-point
+    # primitives on CUDA tensors; (e) the dry runs: four launcher-started
+    # ranks in processes of their own, and the one-process multi-device dry
+    # run.  The probes and the four ranks start first and run beside the
+    # one-process dry run (their times are mostly process start).
+    from tneq_tpu_torch.ops import measurement_matrices
+    from tneq_tpu_torch.ops.contract import abs_square
+    from tneq_tpu_torch.parallel import make_sliced_siamese_fn
+    from tneq_tpu_torch.parallel.dryrun import dryrun_multichip
+    from tneq_tpu_torch.train.losses import nll_loss
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    t_part = time.perf_counter()
+    probes = _gloo_probes()
+    mp = subprocess.Popen([sys.executable, "-m", "tneq_tpu_torch.bench.multiproc_dryrun"],
+                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            dry = dryrun_multichip(DRYRUN_POSITIONS, device="cuda")
+        dt_dry = time.perf_counter() - t0
+        mp_out, mp_err = mp.communicate(timeout=600)
+        dt_mp = time.perf_counter() - t_part
+    finally:
+        if mp.poll() is None:
+            mp.kill()
+            mp.wait()
+    probed = _gloo_probe_results(*probes)
+    for o in dp_outs:
+        rep = o["health"]
+        routes = {p: rep["axes"]["data"][p]["route"] for p in ("all_gather", "psum", "ppermute")}
+        check(rep["ok"] and routes == GLOO_CUDA_ROUTES,
+              f"health rank {o['rank']}: {rep}, routes {routes}")
+    rec_d = {"phase": "distributed", "part": "d_health",
+             "program": f"check_mesh_health over the {DP_WORLD} gloo ranks of (a) (mesh "
+                        f"{{'data': {DP_WORLD}, 'model': 1}} on cuda:0); gloo's "
+                        "primitives the port does not use, on CUDA tensors",
+             "reports": [o["health"] for o in dp_outs], "gloo_cuda_probes": probed,
+             "card": smi}
+    emit(rec_d)
+    recs.append(rec_d)
+
+    print(mp_err, file=sys.stderr, flush=True)
+    check(mp.returncode == 0, f"multiproc_dryrun exited {mp.returncode}")
+    mp_rec = json.loads(mp_out.strip().splitlines()[-1])
+    # the same step's loss in one process on the card
+    from tneq_tpu_torch.graph import parse_graph, wall_graph
+
+    wg = parse_graph(wall_graph(4, layers=2, dim=2))
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(8, wg.nqubits)),
+                        dtype=torch.float32, device="cuda")
+    mx = measurement_matrices(x, 2).to(torch.complex64)
+    raw = make_sliced_siamese_fn(wg, make_mesh({"data": 2, "model": 2}, devices=["cuda:0"] * 4))(
+        init_params(wg, 0, torch.complex64, device="cuda"),
+        basis_states(wg, dtype=torch.complex64, device="cuda"),
+        [mx[:, q] for q in range(wg.nqubits)])
+    mp_ref = float(nll_loss(abs_square(raw)))
+    mp_err_rel = abs(mp_rec["loss"] - mp_ref) / abs(mp_ref)
+    check(mp_rec["ok"] and mp_rec["n_processes"] == 4 and mp_err_rel <= TOL_RANK_VALUE,
+          f"multiproc_dryrun: {mp_rec}, one-process loss {mp_ref}")
+    rec_e = {"phase": "distributed", "part": "e_dryruns",
+             "dryrun_multichip": {"positions": DRYRUN_POSITIONS, "device": "cuda:0",
+                                  "result": dry, "seconds": dt_dry},
+             "multiproc_dryrun": {**mp_rec, "one_process_loss": mp_ref,
+                                  "rel_err": mp_err_rel, "tolerance": TOL_RANK_VALUE,
+                                  "seconds": dt_mp},
+             "seconds": time.perf_counter() - t_part, "card": smi}
+    emit(rec_e)
+    recs.append(rec_e)
+    return recs
+
+
 def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
-                 batched: list, large_n: dict, prob: dict) -> dict:
+                 batched: list, large_n: dict, prob: dict, distributed: list) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
+    dist = {r["part"]: r for r in distributed}
+    fsdp = dist["c_fsdp_headline"]
     lane_part = next(r for r in batched if r["part"] == "a_lane_kernels")
     mps_part = next(r for r in batched if r["part"] == "d_mps_experiment")
     lane_case = next(c for c in lane_part["cases"] if c["lanes"] == LANE_CHUNK)
@@ -2630,8 +3237,10 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "route": "cuda",
             "source": "tneq_tpu_torch/csrc/chain_sweep.cu",
             "replaces": meta["replaces"],
-            # the bench run's and phase 11 (a)'s fits
-            "launches": bench["launches"][name] + large_n["launches"][name],
+            # the bench run's, phase 11 (a)'s fits and phase 14 (c)'s FSDP
+            # steps (one process and both ranks)
+            "launches": bench["launches"][name] + large_n["launches"][name]
+            + fsdp["launches"][name],
             "launches_per_step": bench["launches_per_step"][name],
             "max_abs_err": main_case["max_abs_err"][name],
             "ms": main_case["times"][name]["ms"],
@@ -2655,6 +3264,9 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                 "launches_per_chunk_step": mps_part["launches_per_chunk_step"][LANE_CHUNK][name],
             },
             # phase 11 (a): the 64- and 128-qubit fits
+            "fsdp": {"launches": fsdp["launches"][name],
+                     "launches_per_step_per_rank": fsdp["launches"][name]
+                     / (FSDP_STEPS * (1 + FSDP_POSITIONS))},
             "large_n": [{"n": part["sweep_case"]["n"], "S": part["sweep_case"]["S"],
                          "ms": part["sweep_case"]["times"][name]["ms"],
                          "device_ms": part["sweep_case"]["times"][name]["device_ms"],
@@ -2665,6 +3277,18 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                          "launches_per_step": part["launches_per_step"][name]}
                         for part in large_n["parts"]],
         })
+    # phase 14's new paths: (a) the data-parallel trainer (B3, one process
+    # and both ranks), (b) the trainer CLI (B4)
+    dist_launches = {
+        "transfer_step": {"path": "a_dp_trainer", "launches": dist["a_dp_trainer"]["launches"],
+                          "launches_per_step_per_rank": dist["a_dp_trainer"]["launches"]
+                          / (DP_STEPS * (1 + DP_WORLD))},
+        "transfer_step_complex": {
+            "path": "b_trainer_cli",
+            "launches": dist["b_trainer_cli"]["launches"]["transfer_step_complex"],
+            "launches_per_step": dist["b_trainer_cli"]["launches_per_step"][
+                "transfer_step_complex"]},
+    }
     for name, run, shape in (("transfer_step", born, BORN_SHAPE),
                              ("transfer_step_complex", cli, CLI_SHAPE)):
         meta = _KERNELS[name]
@@ -2679,8 +3303,10 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "route": "cuda",
             "source": "tneq_tpu_torch/csrc/transfer_step.cu",
             "replaces": meta["replaces"],
-            # the training run's, and phase 11 (c)'s probability
-            "launches": run["launches"][name] + prob["born_rule"]["launches"][name],
+            # the training run's, phase 11 (c)'s probability and phase 14's
+            "launches": run["launches"][name] + prob["born_rule"]["launches"][name]
+            + dist_launches[name]["launches"],
+            "distributed": dist_launches[name],
             "launches_per_step": run["launches_per_step"][name],
             "max_abs_err": case["max_abs_err"],
             "ms": case["ms"],
@@ -2746,12 +3372,14 @@ def main() -> int:
         timed("merge_split", phase_merge_split, smi)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             timed("sliced", phase_sliced, smi, brick_network, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            distributed = timed("distributed", phase_distributed, smi, tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     emit({"phase": "timing", "seconds": seconds, "total": sum(seconds.values())})
     emit(kernels_line(kern, bench, transfer, born, cli, [lane_kern] + batched, large_n,
-                      prob))
+                      prob, distributed))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -397,3 +397,63 @@ def test_chain_sampler_on_the_card_matches_the_host(dev):
             continue
         assert abs(ra[diff[0]] - rb[diff[0]]) < 4 * bin_w
     assert n_ident >= S * 3 // 4
+
+
+def test_dp_step_on_the_card_launches_b3_and_matches_the_host(dev):
+    """The data-parallel step in one process on two card positions (the
+    one-card form): one B3 launch per sweep and pass, 2 per step, and the
+    host's loss and params at the same cores."""
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params
+    from tneq_tpu_torch.ops import transfer_step
+    from tneq_tpu_torch.optim.stiefel import sgdg
+    from tneq_tpu_torch.parallel import make_dp_train_step, make_mesh
+    from tneq_tpu_torch.train.trainer import Trainer, basis_states
+
+    g = parse_graph(mps_graph(8, 8, phys=4))
+    x = np.random.default_rng(0).normal(size=(64, 8)).astype(np.float32)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        t = Trainer(g, optimizer=sgdg(1e-2, momentum=0.9, retraction_prob=0.0),
+                    dtype=torch.float32, device=d)
+        step = make_dp_train_step(t, make_mesh({"data": 2}, devices=[d] * 2))
+        p = init_params(g, 0, torch.float32, device=d)
+        transfer_step.reset_launch_counts()
+        p, _, loss = step(p, t.optimizer.init(p), basis_states(g, dtype=torch.float32, device=d),
+                          torch.as_tensor(x, device=d))
+        out[d.type] = (float(loss), {k: v.cpu() for k, v in p.items()},
+                       transfer_step.launch_counts()["transfer_step"])
+    assert out["cuda"][2] == 2 and out["cpu"][2] == 0
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for k, v in out["cpu"][1].items():
+        assert _rel(out["cuda"][1][k], v) <= 1e-4
+
+
+def test_fsdp_step_on_the_card_launches_b1_b2_and_keeps_the_padding(dev):
+    """The FSDP step in one process on two card positions: B1 = 3 and B2 = 2
+    launches per step, the loss −log F of the unstacked cores, and the
+    identity padding bit-exact over 5 steps."""
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params
+    from tneq_tpu_torch.parallel import make_mesh
+    from tneq_tpu_torch.parallel.fsdp import make_fsdp_network_fit_step
+    from tneq_tpu_torch.train.network_fit import network_log_fidelity
+
+    g = parse_graph(mps_graph(8, dim=16))  # 7 cores of (16,)*4, padded to 8
+    step, prepare, opt = make_fsdp_network_fit_step(g, make_mesh({"model": 2},
+                                                                 devices=[dev] * 2))
+    p = init_params(g, 1, torch.float32, device=dev)
+    t = init_params(g, 2, torch.float32, device=dev)
+    arrays, t_arrays = prepare(p), prepare(t)
+    o = opt.init(arrays)
+    co.reset_launch_counts()
+    arrays, o, loss = step(arrays, o, t_arrays)
+    torch.cuda.synchronize()
+    counts = co.launch_counts()
+    assert counts["chain_sweep_fwd"] == 3 and counts["chain_sweep_bwd"] == 2
+    want = -float(network_log_fidelity(g, p, t))
+    assert abs(float(loss) - want) <= 1e-5 * max(1.0, abs(want))
+    for _ in range(4):
+        arrays, o, _ = step(arrays, o, t_arrays)
+    ident = torch.eye(256, device=dev).reshape(16, 16, 16, 16)
+    assert torch.equal(arrays[0][7], ident)

@@ -1,14 +1,16 @@
-"""The rank form of the bond-sliced contractions: two ``torch.distributed``
-ranks (gloo, on the host), one per position of a ``model`` axis of 2,
-held against the same functions in one process.
+"""The rank form of the parallel layer on two ``torch.distributed`` ranks
+(gloo, on the host), held against the same functions in one process: the
+bond-sliced contractions, one rank per position of a ``model`` axis of 2;
+the data-parallel step and the distributed trainer on a ``data`` axis of
+2; the FSDP step on a ``model`` axis of 2.
 
 One process group serves the whole file: a module-scoped fixture spawns
 the two ranks once, each runs every case below and sends its results
 back.  The ranks unpickle their function from this module, so it imports
 no JAX.  Tolerances: values within float32 rounding (rtol 1e-6), each
 rank's gradient within 1e-5 of the one-process gradient (max-abs
-normalised), fits at rtol 1e-5; the two ranks' params after a fit are
-bit-equal.
+normalised), fits and trainer losses at rtol 1e-5, params after 3 steps
+within 1e-5 (max-abs normalised); the two ranks' replicas are bit-equal.
 """
 
 import multiprocessing
@@ -29,10 +31,20 @@ from tneq_tpu_torch.model.qctn import init_params, params_to_numpy
 from tneq_tpu_torch.ops import measurement_matrices
 from tneq_tpu_torch.ops.complex_pair import to_pair
 from tneq_tpu_torch.optim.stiefel import sgdg
-from tneq_tpu_torch.parallel import make_mesh, make_sliced_siamese_fn, sliced_nll_loss
+from tneq_tpu_torch.parallel import (
+    DistributedConfig,
+    DistributedTrainer,
+    data_sharding,
+    make_dp_train_step,
+    make_mesh,
+    make_sliced_siamese_fn,
+    sliced_nll_loss,
+)
+from tneq_tpu_torch.parallel import dp as tdp
 from tneq_tpu_torch.parallel import mp as tmp
+from tneq_tpu_torch.parallel.fsdp import make_fsdp_network_fit_step
 from tneq_tpu_torch.train.network_fit import make_masked_network_fidelity_fit
-from tneq_tpu_torch.train.trainer import basis_states
+from tneq_tpu_torch.train.trainer import Trainer, basis_states
 
 torch.set_num_threads(1)
 
@@ -101,7 +113,58 @@ def _numpy(d):
     return {k: v.detach().numpy() for k, v in d.items()}
 
 
-def _rank_main(rank, port, queue):
+# the data-parallel step: SGD-G with the retraction off and forced
+RETRACTIONS = (0.0, 1.0)
+DP_STEPS = 3
+
+
+def _dp_inputs(retraction_prob):
+    g = _graph("wall_d2")
+    trainer = Trainer(g, optimizer=sgdg(0.05, momentum=0.9, retraction_prob=retraction_prob),
+                      dtype=torch.complex64, device="cpu")
+    p = init_params(g, 1, torch.complex64, device="cpu")
+    xs = torch.as_tensor(np.random.default_rng(0).normal(size=(DP_STEPS, 16, g.nqubits)),
+                         dtype=torch.float32)
+    return trainer, p, basis_states(g, dtype=torch.complex64, device="cpu"), xs
+
+
+def _dp_run(step, trainer, p, st, xs):
+    o = trainer.optimizer.init(p)
+    losses = []
+    for x in xs:
+        p, o, loss = step(p, o, st, x)
+        losses.append(float(loss))
+    return losses, _numpy(p)
+
+
+def _trainer_config(tmp, **kw):
+    return DistributedConfig(graph=wall_graph(4, layers=2, dim=2), batch_size=8, log_every=0,
+                             checkpoint_dir=tmp, checkpoint_every=3, **kw)
+
+
+# FSDP: 5 cores of one shape padded to 6, 3 rows per rank
+FSDP_STEPS = 3
+
+
+def _fsdp_inputs(mesh):
+    g = parse_graph(mps_graph(6, dim=4))
+    step, prepare, opt = make_fsdp_network_fit_step(g, mesh)
+    return step, prepare(init_params(g, 3, torch.float32, device="cpu")), \
+        prepare(init_params(g, 4, torch.float32, device="cpu")), opt
+
+
+def _fsdp_run(mesh):
+    step, arrays, t_arrays, opt = _fsdp_inputs(mesh)
+    loss, grads = step.value_and_grad(arrays, t_arrays)
+    o = opt.init(arrays)
+    for _ in range(FSDP_STEPS):
+        arrays, o, _ = step(arrays, o, t_arrays)
+    nbytes = sum(t.numel() * t.element_size() for t in tuple(arrays) + tuple(o.momentum))
+    return {"loss": float(loss), "grads": [g.numpy() for g in grads],
+            "arrays": [a.numpy() for a in arrays], "state_bytes": nbytes}
+
+
+def _rank_main(rank, port, queue, ckpt):
     """Every case of this file on one rank; results go back on ``queue``."""
     import torch.distributed as dist
 
@@ -130,6 +193,8 @@ def _rank_main(rank, port, queue):
         fit = _make_fit(g, mesh)
         res = fit(p, mask, t, tmask)
         out["fit"] = (_numpy(res.params), float(res.infidelity), res.steps)
+        out["dp"] = _rank_dp(ckpt)
+        out["fsdp"] = _fsdp_run(mesh)
         errors = {}
         for name, call in (
             ("batched", lambda: fit.batched(p, mask[None], t, tmask)),
@@ -152,6 +217,27 @@ def _rank_main(rank, port, queue):
         dist.destroy_process_group()
 
 
+def _rank_dp(ckpt):
+    """The data-parallel cases on a ``data`` axis of 2: the reduced loss and
+    gradient of this rank's rows, DP_STEPS steps per retraction setting, and
+    the distributed trainer run to 6 steps and resumed to 9."""
+    mesh = make_mesh({"data": WORLD}, devices=["cpu"] * WORLD)
+    out = {}
+    for rp in RETRACTIONS:
+        trainer, p, st, xs = _dp_inputs(rp)
+        x = {k: v.clone().requires_grad_() for k, v in p.items()}
+        loss = trainer.loss(x, st, data_sharding(mesh).local(xs[0]))
+        grads = dict(zip(x, torch.autograd.grad(loss, list(x.values()))))
+        loss, grads = tdp._mean_over_rows(mesh, "data")(loss.detach(), grads)
+        out[rp] = (float(loss), _numpy(grads),
+                   _dp_run(make_dp_train_step(trainer, mesh), trainer, p, st, xs))
+    _, s1 = DistributedTrainer(_trainer_config(ckpt, max_steps=6), devices=["cpu"] * WORLD).train()
+    _, s2 = DistributedTrainer(_trainer_config(ckpt, max_steps=9, resume=True),
+                               devices=["cpu"] * WORLD).train()
+    out["trainer"] = (s1.losses, s2.losses, s2.steps)
+    return out
+
+
 def _free_port() -> int:
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -159,11 +245,12 @@ def _free_port() -> int:
 
 
 @pytest.fixture(scope="module")
-def ranks():
+def ranks(tmp_path_factory):
     ctx = multiprocessing.get_context("spawn")
     queue = ctx.Queue()
     port = _free_port()
-    procs = [ctx.Process(target=_rank_main, args=(r, port, queue)) for r in range(WORLD)]
+    ckpt = str(tmp_path_factory.mktemp("rank_ckpt"))
+    procs = [ctx.Process(target=_rank_main, args=(r, port, queue, ckpt)) for r in range(WORLD)]
     for p in procs:
         p.start()
     try:
@@ -245,10 +332,62 @@ def test_rank_fit_replicas_stay_equal(ranks, one_mesh):
 
 
 def test_rank_form_refusals(ranks):
-    """Lanes and a data axis across ranks wait for the data-parallel layer
-    (item 11b); the rank form takes one rank per model position."""
+    """The rank form takes one rank per mesh position: a mesh of 4
+    positions, with a data axis or not, is refused on 2 ranks; lanes of a
+    fit sliced across ranks run."""
     for out in ranks:
         err = out["errors"]
-        assert err["batched"][0] == "NotImplementedError" and "11b" in err["batched"][1]
-        assert err["data_axis"][0] == "NotImplementedError" and "11b" in err["data_axis"][1]
+        assert err["batched"] is None
+        assert err["data_axis"][0] == "ValueError" and "one rank per" in err["data_axis"][1]
         assert err["world_size"][0] == "ValueError" and "one rank per" in err["world_size"][1]
+
+
+@pytest.mark.parametrize("retraction_prob", RETRACTIONS)
+def test_rank_dp_step_equals_one_process(ranks, retraction_prob):
+    """Two data ranks, 8 rows each: the mean loss and gradient of the global
+    batch as one process computes them on all 16 rows; after 3 steps the
+    replicas are bit-equal and equal to the one-process params."""
+    trainer, p, st, xs = _dp_inputs(retraction_prob)
+    loss, grads = _value_and_grad(lambda q: trainer.loss(q, st, xs[0]), p)
+    one = _dp_run(trainer.train_step, trainer, p, st, xs)
+    runs = []
+    for out in ranks:
+        r_loss, r_grads, r_run = out["dp"][retraction_prob]
+        np.testing.assert_allclose(r_loss, float(loss), rtol=1e-6)
+        assert _max_rel(r_grads, _numpy(grads)) < 1e-5
+        np.testing.assert_allclose(r_run[0], one[0], rtol=1e-5)
+        assert _max_rel(r_run[1], one[1]) < 1e-5
+        runs.append(r_run[1])
+    assert all(np.array_equal(runs[0][k], runs[1][k]) for k in runs[0])
+
+
+def test_rank_distributed_trainer_resumes(ranks, tmp_path):
+    """The distributed trainer on two data ranks: rank 0 writes the
+    checkpoints, every rank resumes from step 6 and runs the 3 steps left,
+    with the losses of one process."""
+    _, s1 = DistributedTrainer(_trainer_config(str(tmp_path), max_steps=6),
+                               devices=["cpu"]).train()
+    _, s2 = DistributedTrainer(_trainer_config(str(tmp_path), max_steps=9, resume=True),
+                               devices=["cpu"]).train()
+    for out in ranks:
+        first, resumed, steps = out["dp"]["trainer"]
+        assert steps == 9 and len(resumed) == 3
+        np.testing.assert_allclose(first + resumed, s1.losses + s2.losses, rtol=1e-5)
+
+
+def test_rank_fsdp_equals_one_process(ranks, one_mesh):
+    """FSDP on two ranks: each rank's rows of the gradient are the one
+    process's rows, each keeps half the stacked params and momentum, and
+    after 3 steps its rows equal the one process's, the identity pad
+    (row 5, on rank 1) bit-exact."""
+    one = _fsdp_run(one_mesh)
+    rows = one["arrays"][0].shape[0] // WORLD
+    for r, out in enumerate(ranks):
+        f = out["fsdp"]
+        np.testing.assert_allclose(f["loss"], one["loss"], rtol=1e-6)
+        own = slice(r * rows, (r + 1) * rows)
+        assert _max_rel({"g": f["grads"][0]}, {"g": one["grads"][0][own]}) < 1e-5
+        assert _max_rel({"p": f["arrays"][0]}, {"p": one["arrays"][0][own]}) < 1e-5
+        assert f["state_bytes"] <= 0.55 * one["state_bytes"]
+    pad = ranks[1]["fsdp"]["arrays"][0][-1]
+    assert np.array_equal(pad, np.eye(16, dtype=np.float32).reshape(pad.shape))

@@ -22,6 +22,7 @@ from typing import Dict, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from ..graph.dsl import CircuitGraph, parse_graph, render_dsl
 from ..graph.surgery import merge_graphs, split_graph
@@ -101,23 +102,27 @@ def init_params(
     }
 
 
-def params_from_numpy(
-    params: Mapping[str, np.ndarray],
-    device: DeviceLike,
-    dtype: Optional[torch.dtype] = None,
-) -> Params:
+def params_from_numpy(params, device: DeviceLike, dtype: Optional[torch.dtype] = None):
     """``{name: ndarray}`` -> ``{name: Tensor}`` on ``device`` (optionally
-    cast to ``dtype``), in the shared axis order."""
+    cast to ``dtype``), in the shared axis order.  Also any pytree of
+    arrays: a ``parallel.fsdp.StackedParams`` or ``StackedSGDGState``, a
+    ``DistributedTrainer``'s params; leaves that are not arrays (names,
+    counts, a generator) stay as they are."""
     dev = resolve_device(device)
-    return {
-        k: torch.as_tensor(np.array(v)).to(device=dev, dtype=dtype)
-        for k, v in params.items()
-    }
+
+    def leaf(v):
+        if hasattr(v, "__array__") and not isinstance(v, torch.Generator):
+            return torch.as_tensor(np.array(v)).to(device=dev, dtype=dtype)
+        return v
+
+    return tree_map(leaf, params)
 
 
-def params_to_numpy(params: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
-    """``{name: Tensor}`` -> ``{name: ndarray}`` (detached, on the host)."""
-    return {k: v.detach().cpu().numpy() for k, v in params.items()}
+def params_to_numpy(params):
+    """``{name: Tensor}`` -> ``{name: ndarray}`` (detached, on the host), or
+    any pytree of tensors, as :func:`params_from_numpy` takes it."""
+    return tree_map(lambda v: v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v,
+                    params)
 
 
 class QCTN:

@@ -109,6 +109,47 @@ def _draw(gen: torch.Generator) -> float:
     return float(torch.rand((), generator=gen))
 
 
+def _stiefel_step(g, p, v, x, lr, momentum, eps, cayley, cayley_iters):
+    """SGD-G's Cayley update of a batch ``[B, *shape]`` given the (possibly
+    retracted) manifold points x ``[B, rows, cols]``: ``(update,
+    momentum)``."""
+    rows, cols = x.shape[-2:]
+    # JAX's gradient is conj(g) here, and JAX takes its plain transpose
+    g2 = g.conj().reshape(-1, rows, cols)
+    v_new = momentum * v - g2.transpose(-2, -1)  # (cols, rows)
+    mx = v_new @ x  # (cols, cols)
+    xmx = x @ mx  # (rows, cols)
+    xxmx = _mT(x) @ xmx  # (cols, cols)
+    w_hat = mx - 0.5 * xxmx
+    w = w_hat - _mT(w_hat)  # skew-Hermitian
+    t = 1.0 / (matrix_norm_one(w) + eps)
+    alpha = t.clamp(max=lr)
+    y = _cayley(alpha, w, _mT(x), cayley, cayley_iters)  # (cols, rows)
+    p_new = _mT(y).reshape(p.shape)
+    v_next = w @ _mT(x)  # (cols, rows), saved for next step
+    return p_new - p, v_next
+
+
+def _plain_step(g, p, buf, lr, count, momentum, dampening=0.0, weight_decay=0.0,
+                nesterov=False):
+    """SGD-G's plain update (a leaf off the manifold): ``(update, buffer)``."""
+    # JAX's descent direction conj(g_jax) is torch's g
+    d = g
+    if weight_decay != 0:
+        d = d + weight_decay * p
+    if momentum != 0:
+        # torch's buffer starts as the first gradient (JAX emulates the
+        # clone with a where on count == 0)
+        if count == 0:
+            buf_new = d
+        else:
+            buf_new = momentum * buf + (1.0 - dampening) * d
+        d = d + momentum * buf_new if nesterov else buf_new
+    else:
+        buf_new = buf
+    return -lr * d, buf_new
+
+
 class SGDGState(NamedTuple):
     momentum: Dict[str, torch.Tensor]  # (cols, rows) per Stiefel leaf
     generator: torch.Generator
@@ -153,42 +194,6 @@ def sgdg(
             count=0,
         )
 
-    def _stiefel_math(g, p, v, x, lr):
-        """Cayley update of a batch ``[B, *shape]`` given the (possibly
-        retracted) manifold points x ``[B, rows, cols]``."""
-        rows, cols = x.shape[-2:]
-        # JAX's gradient is conj(g) here, and JAX takes its plain transpose
-        g2 = g.conj().reshape(-1, rows, cols)
-        v_new = momentum * v - g2.transpose(-2, -1)  # (cols, rows)
-        mx = v_new @ x  # (cols, cols)
-        xmx = x @ mx  # (rows, cols)
-        xxmx = _mT(x) @ xmx  # (cols, cols)
-        w_hat = mx - 0.5 * xxmx
-        w = w_hat - _mT(w_hat)  # skew-Hermitian
-        t = 1.0 / (matrix_norm_one(w) + eps)
-        alpha = t.clamp(max=lr)
-        y = _cayley(alpha, w, _mT(x), cayley, cayley_iters)  # (cols, rows)
-        p_new = _mT(y).reshape(p.shape)
-        v_next = w @ _mT(x)  # (cols, rows), saved for next step
-        return p_new - p, v_next
-
-    def _plain_update(g, p, buf, lr, count):
-        # JAX's descent direction conj(g_jax) is torch's g
-        d = g
-        if weight_decay != 0:
-            d = d + weight_decay * p
-        if momentum != 0:
-            # torch's buffer starts as the first gradient (JAX emulates the
-            # clone with a where on count == 0)
-            if count == 0:
-                buf_new = d
-            else:
-                buf_new = momentum * buf + (1.0 - dampening) * d
-            d = d + momentum * buf_new if nesterov else buf_new
-        else:
-            buf_new = buf
-        return -lr * d, buf_new
-
     def update(grads, state: SGDGState, params):
         lr = _lr_at(learning_rate, state.count)
         updates: Dict[str, torch.Tensor] = {}
@@ -199,9 +204,9 @@ def sgdg(
             if is_stiefel_leaf(p):
                 groups.setdefault(tuple(p.shape), []).append(name)
             else:
-                updates[name], new_mom[name] = _plain_update(
-                    grads[name], p, state.momentum[name], lr, state.count
-                )
+                updates[name], new_mom[name] = _plain_step(
+                    grads[name], p, state.momentum[name], lr, state.count,
+                    momentum, dampening, weight_decay, nesterov)
         for shape, names in groups.items():
             rows, cols = _rows_cols(shape)
             g_b = torch.stack([grads[n] for n in names])
@@ -211,7 +216,8 @@ def sgdg(
             # one draw per shape group (JAX: stiefel.py:246-256)
             if retraction_prob > 0 and _draw(state.generator) < retraction_prob:
                 x_b = qr_retraction(x_b)
-            u_b, m_b = _stiefel_math(g_b, p_b, v_b, x_b, lr)
+            u_b, m_b = _stiefel_step(g_b, p_b, v_b, x_b, lr, momentum, eps, cayley,
+                                     cayley_iters)
             for j, n in enumerate(names):
                 updates[n], new_mom[n] = u_b[j], m_b[j]
         return updates, SGDGState(new_mom, state.generator, state.count + 1)

@@ -25,22 +25,27 @@ Two execution forms, decided when a factory is called:
   slice in turn.  The positions must share one device (the one-card form:
   ``make_mesh({"model": 2}, devices=["cuda:0"] * 2)``).  A ``data`` axis
   changes no number: the whole batch is contracted.
-- **ranks**: one ``torch.distributed`` rank per ``model`` position.  Rank
-  ``r`` runs slices ``r·local ..``, and the combine goes through
-  ``all_reduce`` (MAX for the log-scales, SUM for the partials).  Any
-  other axis > 1 (a ``data`` axis) waits for the data-parallel layer
-  (ROADMAP A, item 11b).
+- **ranks**: one ``torch.distributed`` rank per mesh position
+  (``parallel/mesh.py``).  The rank at ``model`` coordinate ``r`` runs
+  slices ``r·local ..``, and the combine goes through ``all_reduce`` on
+  its ``model`` line (MAX for the log-scales, SUM for the partials).  The
+  siamese contraction's ``data_axis`` (JAX's ``in_specs=(P(), P(),
+  P(data_axis))``) becomes this rank's rows of the batch: each rank
+  contracts its rows and the rows are gathered over its ``data`` line, so
+  ``fn`` returns the whole batch, as JAX's does.  Ranks on one line of
+  any other axis compute the same.
 
 Gradients.  JAX's gradient of the replicated params is the sum over
 devices of each device's slice terms.  In one process that is what
 autograd gives, every slice being in one graph.  Across ranks the SUM
-combine is an autograd Function whose backward passes the cotangent
-through unchanged (torch's differentiable ``all_reduce`` would sum the
-cotangent too, doubling the gradient on two ranks), so each rank's
-gradient holds its own slices' terms, and the caller sums the parameter
-gradients with ``fn.reduce_gradients`` before the optimizer update.  This
-is exact when every gradient term passes through a sliced contraction, as
-in the fits.
+combine passes the cotangent through unchanged and the row gather hands
+each rank its own rows' cotangent (``parallel/_collectives.py``), so each
+rank's gradient holds its own slices' terms of its own rows, and the
+caller sums the parameter gradients over the ranks that hold different
+terms with ``fn.reduce_gradients`` (one flat buffer) before the optimizer
+update.  A loss on the gathered batch is its mean over the global batch,
+as in JAX.  This is exact when every gradient term passes through a
+sliced contraction, as in the fits.
 """
 
 from __future__ import annotations
@@ -59,7 +64,8 @@ from ..ops.einsum_spec import siamese_spec_sliced, two_network_spec_sliced
 from ..ops.pairwise import make_log_abs_two_network_fn
 from ..ops.row_scan import make_row_scan_log_overlap_fn, supports_row_scan
 from ..train.losses import nll_loss
-from .mesh import Mesh
+from ._collectives import all_reduce, gather_rows, sum_flat
+from .mesh import Mesh, data_sharding, rank_form
 
 __all__ = [
     "choose_slice_bonds",
@@ -129,57 +135,25 @@ def _bond_indices(flat_idx: int, ranks: Sequence[int]) -> List[int]:
     return idxs[::-1]
 
 
-class _AllReduce(torch.autograd.Function):
-    """``all_reduce`` of a copy of ``x`` whose backward passes the cotangent
-    through unchanged.  Its forward sees plain tensors under the
-    ``torch.func`` transforms, which the collectives need."""
-
-    @staticmethod
-    def forward(x, op):
-        y = x.clone()
-        dist.all_reduce(y, op=op)
-        return y
-
-    @staticmethod
-    def setup_context(ctx, inputs, output):
-        pass
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 class _Positions:
     """The positions of the ``model`` axis this process runs (all of them
     in one process, its rank's in the rank form), their shares of the
-    ``total`` slices, and the combine over positions."""
+    ``total`` slices, the combine over positions and the gradient sum over
+    ``reduce_axes`` (the ``model`` axis, and the ``data`` axis where the
+    rows are split)."""
 
-    def __init__(self, mesh: Mesh, model_axis: str, total: int):
+    def __init__(self, mesh: Mesh, model_axis: str, total: int,
+                 reduce_axes: Tuple[str, ...] = ()):
         n_model = mesh.shape[model_axis]
         self.total = total
         self.local = -(-total // n_model)  # ceil: the tail is padded
-        self.ranks = dist.is_available() and dist.is_initialized() \
-            and dist.get_world_size() > 1
+        self.ranks = rank_form()
         if self.ranks:
-            if mesh.size != n_model:
-                raise NotImplementedError(
-                    f"mesh {dict(mesh.shape)}: axes besides '{model_axis}' across ranks "
-                    f"are the data-parallel layer (ROADMAP A, item 11b)"
-                )
-            if dist.get_world_size() != n_model:
-                raise ValueError(
-                    f"the rank form takes one rank per '{model_axis}' position: "
-                    f"{n_model} positions, {dist.get_world_size()} ranks"
-                )
-            self.positions: Tuple[int, ...] = (dist.get_rank(),)
+            self.line = mesh.line((model_axis,))
+            self.positions: Tuple[int, ...] = (self.line.index,)
+            self.reduce_line = mesh.line((model_axis,) + tuple(reduce_axes))
         else:
-            devices = {str(d) for d in mesh.devices.flat}
-            if len(devices) > 1:
-                raise ValueError(
-                    f"one process runs its positions on one device, the mesh holds "
-                    f"{sorted(devices)}: give each '{model_axis}' position a "
-                    f"torch.distributed rank of its own (the rank form)"
-                )
+            mesh.device()  # one device for every position
             self.positions = tuple(range(n_model))
 
     def slices(self, pos: int) -> range:
@@ -188,7 +162,7 @@ class _Positions:
     def sum(self, partials: List[torch.Tensor]) -> torch.Tensor:
         """Raw forms: the positions' partial sums added (JAX's ``psum``)."""
         if self.ranks:
-            return _AllReduce.apply(partials[0], dist.ReduceOp.SUM)
+            return all_reduce(partials[0], self.line)
         acc = partials[0]
         for p in partials[1:]:
             acc = acc + p
@@ -200,22 +174,18 @@ class _Positions:
         of the renormalised mantissas."""
         if self.ranks:
             (m, l), = parts
-            gmax = _AllReduce.apply(l.detach(), dist.ReduceOp.MAX)
-            return gmax, _AllReduce.apply(m * torch.exp(l - gmax), dist.ReduceOp.SUM)
+            gmax = all_reduce(l.detach(), self.line, dist.ReduceOp.MAX)
+            return gmax, all_reduce(m * torch.exp(l - gmax), self.line)
         gmax = torch.stack([l for _, l in parts]).max().detach()
         return gmax, self.sum([m * torch.exp(l - gmax) for m, l in parts])
 
     def reduce_gradients(self, grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """The parameter gradients summed over ranks (each rank holds its
-        own slices' terms); unchanged in one process."""
+        """The parameter gradients summed over the ranks that hold
+        different terms, through one flat buffer (safe under
+        ``torch.func.vmap``); unchanged in one process."""
         if not self.ranks:
             return grads
-        out = {}
-        for k, g in grads.items():
-            g = g.clone()
-            dist.all_reduce(g, op=dist.ReduceOp.SUM)
-            out[k] = g
-        return out
+        return sum_flat(grads, self.reduce_line)
 
 
 def _finish(fn, positions: _Positions):
@@ -248,8 +218,10 @@ def make_sliced_siamese_fn(
     """Siamese contraction with sliced ket-side bonds shared out over
     ``model_axis``: ``fn(params, states, measures) -> raw siamese values``,
     as ``ops.contract.make_siamese_fn``'s.  Differentiable.  ``data_axis``
-    is JAX's batch axis: one process contracts the whole batch, and the
-    rank form refuses any axis besides ``model_axis``."""
+    is JAX's batch axis: one process contracts the whole batch; in the rank
+    form each rank contracts its rows of the measures' leading axis and
+    the rows are gathered over its ``data_axis`` line.  ``fn`` returns
+    the whole batch either way."""
     n_model = mesh.shape[model_axis]
     if bonds is None:
         bonds = choose_slice_bonds(graph, n_model)
@@ -257,7 +229,9 @@ def make_sliced_siamese_fn(
         graph, tuple(bonds), True, states_batched, measure_extra_dims
     )
     total = int(np.prod(ranks)) if ranks else 1
-    positions = _Positions(mesh, model_axis, total)
+    split = data_axis is not None and mesh.shape.get(data_axis, 1) > 1
+    positions = _Positions(mesh, model_axis, total, (data_axis,) if split else ())
+    rows = data_sharding(mesh, data_axis) if split else None
 
     def partial(params, states, measures, idx):
         # ket-side cores are sliced; the bra (conjugate) side keeps the full
@@ -279,6 +253,8 @@ def make_sliced_siamese_fn(
 
     def fn(params, states, measures):
         measures = list(measures)
+        if rows is not None:
+            measures = [rows.local(m) for m in measures]
         first = next(iter(params.values()))
         parts = []
         for pos in positions.positions:
@@ -287,7 +263,10 @@ def make_sliced_siamese_fn(
             for idx in positions.slices(pos):
                 acc = acc + partial(params, states, measures, idx)
             parts.append(acc)
-        return positions.sum(parts)
+        out = positions.sum(parts)
+        if rows is not None and positions.ranks:
+            out = gather_rows(out, mesh.line((data_axis,)))
+        return out
 
     return _finish(fn, positions)
 

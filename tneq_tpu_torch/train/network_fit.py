@@ -183,7 +183,9 @@ def make_masked_network_fidelity_fit(
 
     ``fit.batched(params, masks, target_params, target_mask,
     chunk_steps=0)`` runs one lane per row of ``masks`` in lockstep from
-    ``params``, the target prepared once and shared by the lanes.
+    ``params``, the target prepared once and shared by the lanes; across
+    ranks too, the combine and the gradient sum reducing the lane-batched
+    tensors whole (an all-reduce commutes with the lane axis).
     """
     use_mesh = mesh is not None and mesh.shape[model_axis] > 1
     mid_shapes = {c.shape for c in graph.cores[1:-1]}
@@ -260,11 +262,6 @@ def make_masked_network_fidelity_fit(
     def batched(params, masks, target_params, target_mask, chunk_steps: int = 0) -> FitResult:
         """Lockstep lanes over mask rows (see ``FitDrivers.batched``); the
         target is prepared once and shared by the lanes."""
-        if reduce_grads is not None:
-            raise NotImplementedError(
-                "lanes of a fit sliced across ranks wait for the data-parallel "
-                "layer (ROADMAP A, item 11b)"
-            )
         target_eff_n, log_tt = prepare(target_params, target_mask)
         p_b, o_b, steps, nlf_b = drivers.batched(params, masks, target_eff_n, log_tt,
                                                  chunk_steps=chunk_steps)

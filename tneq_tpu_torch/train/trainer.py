@@ -85,6 +85,7 @@ class Trainer:
         K: Optional[int] = None,
         dtype: torch.dtype = torch.complex64,
         device: DeviceLike = "cuda",
+        mesh=None,
     ):
         self.graph = graph
         self.config = config or TrainingConfig()
@@ -119,9 +120,13 @@ class Trainer:
         # float64 and complex128 ("mps_sweep"); both are the same function on
         # chains, and the parity tests hold the two Trainers against each
         # other (ROADMAP C).  Other graphs (tree, wall, wall_col) take
-        # make_siamese_fn, as in JAX.
+        # make_siamese_fn, as in JAX.  A ``mesh`` (``parallel.make_mesh``)
+        # whose ``model`` axis is > 1 bond-slices the contraction over it
+        # (``parallel/mp.py``; its batch rows over ``data`` in the rank
+        # form), and the step sums the gradients over the ranks.
         self._siamese, self.strategy = compile_siamese(
-            graph, use_kernel=kernel_supported(dtype))
+            graph, mesh=mesh, use_kernel=kernel_supported(dtype))
+        self._reduce_gradients = getattr(self._siamese, "reduce_gradients", None)
 
     # -- forward ----------------------------------------------------------
 
@@ -135,17 +140,23 @@ class Trainer:
     def loss(self, params, states, x) -> torch.Tensor:
         return nll_loss(self.probability(params, states, x))
 
-    def _step(self, params, opt_state, states, x):
+    def _step(self, params, opt_state, states, x, reduce: Optional[Callable] = None):
+        """One update; ``reduce(loss, grads) -> (loss, grads)`` maps the
+        loss and gradients before it (the data-parallel mean,
+        ``parallel/dp.py``)."""
         leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
         loss = self.loss(leaves, states, x)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        loss = loss.detach()
+        if self._reduce_gradients is not None:
+            grads = self._reduce_gradients(grads)
+        if reduce is not None:
+            loss, grads = reduce(loss, grads)
         with torch.no_grad():
             params = {k: v.detach() for k, v in leaves.items()}
-            updates, opt_state = self.optimizer.update(
-                dict(zip(leaves, grads)), opt_state, params
-            )
+            updates, opt_state = self.optimizer.update(grads, opt_state, params)
             params = {k: p + updates[k] for k, p in params.items()}
-        return params, opt_state, loss.detach()
+        return params, opt_state, loss
 
     @property
     def train_step(self) -> Callable:
