@@ -39,6 +39,9 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 2 launches per step,
    finite losses, the first 20 against the same run on the host; then
    ``--dim 32`` (complex64 cores of 256 KiB) for 3 steps, B4 = 2 per step;
+   then ``--profile DIR`` at the defaults, cut to 5 steps: the Chrome trace
+   it writes names B4's ``transfer_sweep_kernel`` and holds one
+   ``train_step`` span per step;
 8. brick — the reference experiment's default at full width: the 8-qubit,
    5-cell, rank-2 brick wall (35 cores), complex64, SGD-G, dense fidelity,
    the planted 20-core mask.  Its dense target (4^8 entries) against the
@@ -104,7 +107,9 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    full, marginal and conditional probabilities and 256 draws at grid
    1000 (the generic env sampler), each against the host at the same
    inputs, with seconds cold and warm, launches per call and the largest
-   pairwise step.  (c) ``full_probability`` (pairwise einsum) against
+   pairwise step, and ``utils/plots.marginal_grid`` of qubits (0, 1) on its
+   100 x 100 grid against the host's (whether matplotlib is present is
+   printed; the PNG renderers need it).  (c) ``full_probability`` (pairwise einsum) against
    ``Trainer.probability`` (one B3 launch) on the born_rule cell, and log
    P at 30 qubits (cores x16), finite on the card where P is not, against
    the host's;
@@ -160,9 +165,17 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    share, peak memory.  (d) ``check_mesh_health`` over (a)'s ranks with
    each primitive's time and route, and the gloo primitives the port does
    not use, on CUDA tensors (point-to-point is refused, so the ring goes
-   through ``broadcast``).  (e)
+   through ``broadcast``); bench stage 5 (``5_collectives``) on (a)'s
+   ranks, its route table printed.  (e)
    ``parallel/dryrun.dryrun_multichip(2)`` on cuda:0 and
-   ``bench/multiproc_dryrun``'s four ranks, its loss against one process.
+   ``bench/multiproc_dryrun``'s four ranks, its loss against one process;
+15. bench_stages — the card's bf16 matmul ceiling (stage 2 at n = 8192),
+   then ``bench/run_all`` in this process with ``--device cuda`` over stages
+   1, 2, 2b, 3, 3b, 6, 6b, 7, 7b, 7c and 8 at the reference package's
+   default sizes, one JSON line per stage: every stage ``ok``, no
+   ``*_error`` key, no share of the H100's peak above 1.05, and B1/B2 at
+   3/2 launches per step in 7b where S = D² <= 1024 (none at D = 64) and
+   in every step of 8.
 
 Then a ``timing`` line (seconds per phase), the ``kernels`` summary line,
 the ``nvidia-smi`` line, and as the last line ``{"ok": true, "device":
@@ -173,8 +186,10 @@ before the last line.  Without a CUDA device the script exits non-zero.
 from __future__ import annotations
 
 import contextlib
+import glob
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -372,6 +387,22 @@ GLOO_PROBES = (("all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_s
                ("send",), ("batch_isend_irecv",))
 GLOO_CUDA_ROUTES = {"all_gather": "all_gather", "psum": "all_reduce", "ppermute": "broadcast"}
 DRYRUN_POSITIONS = 2
+# the cli phase's profiled run: train_single_node --profile at its defaults,
+# cut to PROFILE_STEPS steps (the default 200 would trace ~43,000 launches)
+PROFILE_STEPS = 5
+
+# the bench_stages phase (15): run_all in-process over BENCH_STAGES at the
+# reference package's default sizes (stage 5 runs on phase 14 (a)'s ranks);
+# the card's bf16 matmul ceiling, stage 2 at n = CEILING_N; every share of
+# the H100's peak at most SHARE_BOUND; B1/B2 launches per step of stages 7b
+# (S = D^2 within the kernels' cap) and 8 as counted
+BENCH_STAGES = ("1", "2", "2b", "3", "3b", "6", "6b", "7", "7b", "7c", "8")
+CEILING_N = 8192
+SHARE_BOUND = 1.05
+SHARE_KEYS = ("peak_share", "hbm_share", "mxu_util", "peak_mxu_util")
+SWEEP_PER_STEP = {"chain_sweep_fwd": 3, "chain_sweep_bwd": 2}
+STAGE_COLLECTIVE_ROUTES = {"psum": "all_reduce", "all_gather": "all_gather",
+                           "ppermute": "broadcast"}
 
 _KERNELS = {
     "chain_sweep_fwd": {
@@ -1005,6 +1036,30 @@ def phase_cli(smi: str) -> dict:
     check(bool(np.isfinite(wide.losses).all()), "cli --dim 32: non-finite loss")
     check(wide_counts == {"transfer_step": 0, "transfer_step_complex": per_step * WIDE_STEPS},
           f"cli --dim 32 launch counts {wide_counts}, expected B4 = {per_step * WIDE_STEPS}")
+    # --profile: the defaults for PROFILE_STEPS steps under torch.profiler; the
+    # Chrome trace must name B4's kernel and one train_step span per step
+    ts.reset_launch_counts()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_profile_") as prof_dir:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            profiled = cli_main(["--steps", str(PROFILE_STEPS), "--device", "cuda",
+                                 "--profile", prof_dir])
+        dt_prof = time.perf_counter() - t0
+        prof_counts = ts.launch_counts()
+        files = glob.glob(f"{prof_dir}/*.json")
+        check(len(files) == 1, f"cli --profile wrote {files}")
+        trace_bytes = os.path.getsize(files[0])
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    b4 = sorted({e["name"] for e in events if e.get("cat") == "kernel"
+                 and "transfer_sweep_kernel" in e.get("name", "")})
+    spans = sum(1 for e in events if e.get("name") == "train_step"
+                and e.get("cat") == "user_annotation")
+    check(bool(b4) and spans == PROFILE_STEPS and bool(np.isfinite(profiled.losses).all())
+          and prof_counts == {"transfer_step": 0,
+                              "transfer_step_complex": per_step * PROFILE_STEPS},
+          f"cli --profile: B4 kernels in the trace {b4}, train_step spans {spans}, "
+          f"launch counts {prof_counts}")
     clip = float(-np.log(np.float32(1e-10)))
     rec = {
         "phase": "cli",
@@ -1021,6 +1076,12 @@ def phase_cli(smi: str) -> dict:
         "launches_per_step": {k: v / CLI_STEPS for k, v in counts.items()},
         "wide": {"argv": ["--dim", "32", "--steps", str(WIDE_STEPS)], "seconds": dt_wide,
                  "losses": [float(x) for x in wide.losses], "launches": wide_counts},
+        "profile": {"argv": ["--steps", str(PROFILE_STEPS), "--profile", "DIR"],
+                    "reduced": {"steps": PROFILE_STEPS}, "seconds": dt_prof,
+                    "trace_bytes": trace_bytes, "trace_events": len(events),
+                    "b4_kernels_named": b4,
+                    "b4_kernel_events": sum(1 for e in events if e.get("name") in b4),
+                    "train_step_spans": spans, "launches": prof_counts},
         "card": smi,
     }
     emit(rec)
@@ -1306,7 +1367,7 @@ def phase_brick_network(smi: str, dense_fitted) -> dict:
         box["p"], box["o"], m = dc.step(box["p"], box["o"], mask, t_eff, log_tt)
         float(m)  # the exit test's host sync, as in the fit loop
 
-    prof8 = _profile_steps(one_step, dt_val / vsteps * 1e3)
+    prof8 = _profile_steps(one_step, dt_val / vsteps * 1e3, steps=1)
     seconds_a = time.perf_counter() - t_start
     t_b = time.perf_counter()
 
@@ -1854,7 +1915,7 @@ def phase_large_n(smi: str) -> dict:
         def one_step():
             box["p"], _ = sgd_step(g, box["p"], target)
 
-        part["profile"] = _profile_steps(one_step, 1e3 / rec["value"])
+        part["profile"] = _profile_steps(one_step, 1e3 / rec["value"], steps=1)
         part["sweep_case"] = _sweep_case(LARGE_N_BOND, n - 3, seed=n)
         if n == LARGE_N[0][0]:
             with torch.no_grad():
@@ -1977,10 +2038,29 @@ def phase_engine(smi: str) -> dict:
             check(bool(torch.isfinite(card).all()) and stats["rel_err"] <= TOL_INFER,
                   f"engine {name}: card vs host {stats['rel_err']}")
         results[name] = stats
+    # utils/plots.marginal_grid of the same cores: P(x0, x1) on its default
+    # 100 x 100 grid, card against host (the PNG renderers need matplotlib,
+    # which a card's host may lack: the record says whether it is there)
+    import importlib.util
+
+    from tneq_tpu_torch.utils.plots import marginal_grid
+
+    t0 = time.perf_counter()
+    grid = marginal_grid(g, side["cuda"][0].params, device="cuda")
+    dt_grid = time.perf_counter() - t0
+    host_grid = marginal_grid(g, side["cpu"][0].params, device="cpu")
+    grid_err = float(np.abs(grid - host_grid).max() / np.abs(host_grid).max())
+    check(grid.shape == (100, 100) and bool(np.isfinite(grid).all())
+          and grid_err <= TOL_INFER, f"engine marginal_grid: card vs host {grid_err}")
+    results["marginal_grid"] = {"edge_size": 100, "seconds": dt_grid, "rel_err": grid_err,
+                                "max": float(grid.max()),
+                                "matplotlib": importlib.util.find_spec("matplotlib")
+                                is not None}
     rec = {"phase": "inference", "part": "b_engine",
            "program": "README Quick start: EngineSiamese on QCTN(wall_graph(8, layers=4, "
                       "dim=2)), complex64, seed 0, x [32, 8] from default_rng(0), K = 2; "
-                      "sample 256 draws at grid 1000 (generic env sampler)",
+                      "sample 256 draws at grid 1000 (generic env sampler); "
+                      "utils/plots.marginal_grid of qubits (0, 1)",
            "tolerance": TOL_INFER, "calls": results,
            "seconds": time.perf_counter() - t_phase, "card": smi}
     emit(rec)
@@ -2774,9 +2854,14 @@ def _dp_rank_main(rank: int, port: int, queue) -> None:
         ar_ms = (time.perf_counter() - t0) / AR_REPS * 1e3
         run = _dp_run(tr, params, data)
         health = check_mesh_health(tr.mesh, verbose=False)
+        # bench stage 5 on these ranks: the port's collectives on a line
+        from tneq_tpu_torch.bench import stage_collectives
+
+        collectives = stage_collectives(device="cuda")
         queue.put({"rank": rank, "loss0": loss0,
                    "grads0": {k: v.cpu().numpy() for k, v in grads0.items()},
                    "all_reduce_ms": ar_ms, "run": run, "health": health,
+                   "collectives": collectives,
                    "grad_bytes": sum(g.numel() * g.element_size() for g in grads0.values())})
     except Exception as e:
         queue.put({"rank": rank, "failed": repr(e)})
@@ -3180,11 +3265,29 @@ def phase_distributed(smi: str, tmp: str) -> list:
         routes = {p: rep["axes"]["data"][p]["route"] for p in ("all_gather", "psum", "ppermute")}
         check(rep["ok"] and routes == GLOO_CUDA_ROUTES,
               f"health rank {o['rank']}: {rep}, routes {routes}")
+    # bench stage 5 (5_collectives) on the same ranks: each collective's
+    # time and route at the stage's default 8 MB
+    stage5 = []
+    for o in dp_outs:
+        rec5 = o["collectives"]
+        routes = {k: r["route"] for k, r in rec5.get("results", {}).items()}
+        check("skipped" not in rec5 and rec5["n_devices"] == DP_WORLD
+              and routes == STAGE_COLLECTIVE_ROUTES
+              and all(r["ms"] > 0 for r in rec5["results"].values()),
+              f"bench stage 5 on rank {o['rank']}: {rec5}")
+        stage5.append({"rank": o["rank"], **rec5})
+    print("bench stage 5 (5_collectives), gloo ranks on cuda:0:", file=sys.stderr)
+    for r5 in stage5:
+        for k, r in r5["results"].items():
+            print(f"  rank {r5['rank']}  {k:10s} -> {r['collective']:10s} via {r['route']:10s}"
+                  f" {r['ms']:9.3f} ms  {r['algo_gbps']:8.2f} GB/s", file=sys.stderr)
     rec_d = {"phase": "distributed", "part": "d_health",
              "program": f"check_mesh_health over the {DP_WORLD} gloo ranks of (a) (mesh "
                         f"{{'data': {DP_WORLD}, 'model': 1}} on cuda:0); gloo's "
-                        "primitives the port does not use, on CUDA tensors",
+                        "primitives the port does not use, on CUDA tensors; bench stage 5 "
+                        "(5_collectives) on the same ranks",
              "reports": [o["health"] for o in dp_outs], "gloo_cuda_probes": probed,
+             "stage_collectives": stage5,
              "card": smi}
     emit(rec_d)
     recs.append(rec_d)
@@ -3219,8 +3322,84 @@ def phase_distributed(smi: str, tmp: str) -> list:
     return recs
 
 
+def _walk(x, path: str = ""):
+    """``(path, key, value)`` of every entry of nested dicts and lists."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield path, k, v
+            yield from _walk(v, f"{path}.{k}")
+    elif isinstance(x, list):
+        for i, v in enumerate(x):
+            yield from _walk(v, f"{path}[{i}]")
+
+
+def phase_bench_stages(smi: str, tmp: str) -> dict:
+    """Phase 15: the port's benchmark stages through ``bench/run_all`` on
+    the card, at the reference package's default sizes, one JSON line per
+    stage; the card's bf16 matmul ceiling (stage 2 at n = 8192)."""
+    from tneq_tpu_torch.bench import flops, run_all
+    from tneq_tpu_torch.bench.microbench import ALL_STAGES, stage_matmul_peak
+    from tneq_tpu_torch.ops.chain_overlap import MAX_S
+
+    t_phase = time.perf_counter()
+    ceiling = stage_matmul_peak(sizes=(CEILING_N,), dtypes=("bfloat16",), device="cuda")
+    ceiling = {**ceiling["results"][0], "tflops": ceiling["results"][0]["gflops"] / 1e3}
+    emit({"phase": "bench_stages", "bf16_matmul_ceiling": ceiling, "card": smi})
+    out = f"{tmp}/bench_stages"
+    with contextlib.redirect_stdout(sys.stderr):
+        rc = run_all.main(["--stages", ",".join(BENCH_STAGES), "--out", out,
+                           "--device", "cuda", "--timeout", "600"])
+    names = [k for k in ALL_STAGES if any(k.startswith(p) for p in BENCH_STAGES)]
+    records = {}
+    for name in names:
+        with open(f"{out}/{name}.json") as f:
+            records[name] = json.load(f)
+        emit({"phase": "bench_stages", "stage": name, "record": records[name], "card": smi})
+    failed = [n for n, r in records.items() if not r.get("ok")]
+    check(rc == 0 and not failed, f"bench_stages: run_all rc {rc}, failed stages {failed}")
+    errors = [f"{n}{p}.{k}" for n, r in records.items() for p, k, _ in _walk(r)
+              if k == "error" or k.endswith("_error")]
+    check(not errors, f"bench_stages: error keys {errors}")
+    shares = {f"{n}{p}.{k}": v for n, r in records.items() for p, k, v in _walk(r)
+              if k in SHARE_KEYS and v is not None}
+    shares["ceiling.peak_share"] = ceiling["peak_share"]
+    over = {k: v for k, v in shares.items() if v > SHARE_BOUND}
+    check(not over, f"bench_stages: shares above {SHARE_BOUND} of the H100 peak: {over}")
+    # B1/B2: per step of 7b's sweep where S = D^2 fits the kernels (none
+    # beyond: D = 64 takes the per-site scan), per FSDP step of 8
+    sweep7b = records["7b_bond_sweep"]
+    zero = {k: 0.0 for k in SWEEP_PER_STEP}
+    for r in sweep7b["sweep"]:
+        fits = r["bond_dim"] ** 2 <= MAX_S
+        check(r["route"] == ("chain_sweep" if fits else "chain_scan")
+              and r["launches_per_step"] == (SWEEP_PER_STEP if fits else zero),
+              f"bench_stages 7b at D = {r['bond_dim']}: route {r['route']}, launches per "
+              f"step {r['launches_per_step']}")
+    check(any(r["bond_dim"] ** 2 > MAX_S for r in sweep7b["sweep"]),
+          "bench_stages 7b: no point beyond the sweep kernels' cap")
+    for c in records["8_fsdp_memory"]["curve"]:
+        check(c["launches"] == SWEEP_PER_STEP,
+              f"bench_stages 8 at {c['model_axis']} positions: launches {c['launches']}")
+    launches = {k: round(sum(r["launches_per_step"][k] * sweep7b["bench_steps"]
+                             for r in sweep7b["sweep"]))
+                + sum(c["launches"][k] for c in records["8_fsdp_memory"]["curve"])
+                for k in SWEEP_PER_STEP}
+    rec = {"phase": "bench_stages",
+           "program": f"bench/run_all.main --device cuda --stages {','.join(BENCH_STAGES)} "
+                      "at the reference package's default sizes (5_collectives: phase 14 d)",
+           "reduced": {}, "stages_ok": {n: r["ok"] for n, r in records.items()},
+           "seconds_by_stage": {n: r["wall_time_s"] for n, r in records.items()},
+           "bf16_matmul_ceiling": ceiling,
+           "measured_matmul_tflops_in_flops_py": flops.MEASURED_MATMUL_TFLOPS,
+           "shares": shares, "share_bound": SHARE_BOUND, "launches": launches,
+           "seconds": time.perf_counter() - t_phase, "card": smi}
+    emit(rec)
+    return rec
+
+
 def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
-                 batched: list, large_n: dict, prob: dict, distributed: list) -> dict:
+                 batched: list, large_n: dict, prob: dict, distributed: list,
+                 stages: dict) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
     dist = {r["part"]: r for r in distributed}
     fsdp = dist["c_fsdp_headline"]
@@ -3237,10 +3416,12 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "route": "cuda",
             "source": "tneq_tpu_torch/csrc/chain_sweep.cu",
             "replaces": meta["replaces"],
-            # the bench run's, phase 11 (a)'s fits and phase 14 (c)'s FSDP
-            # steps (one process and both ranks)
+            # the bench run's, phase 11 (a)'s fits, phase 14 (c)'s FSDP
+            # steps (one process and both ranks) and bench stages 7b and 8
             "launches": bench["launches"][name] + large_n["launches"][name]
-            + fsdp["launches"][name],
+            + fsdp["launches"][name] + stages["launches"][name],
+            "bench_stages": {"launches": stages["launches"][name],
+                             "launches_per_step": SWEEP_PER_STEP[name]},
             "launches_per_step": bench["launches_per_step"][name],
             "max_abs_err": main_case["max_abs_err"][name],
             "ms": main_case["times"][name]["ms"],
@@ -3303,9 +3484,10 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "route": "cuda",
             "source": "tneq_tpu_torch/csrc/transfer_step.cu",
             "replaces": meta["replaces"],
-            # the training run's, phase 11 (c)'s probability and phase 14's
+            # the training run's, phase 11 (c)'s probability, phase 14's and
+            # (B4) the cli phase's profiled run
             "launches": run["launches"][name] + prob["born_rule"]["launches"][name]
-            + dist_launches[name]["launches"],
+            + dist_launches[name]["launches"] + cli["profile"]["launches"][name],
             "distributed": dist_launches[name],
             "launches_per_step": run["launches_per_step"][name],
             "max_abs_err": case["max_abs_err"],
@@ -3374,12 +3556,14 @@ def main() -> int:
             timed("sliced", phase_sliced, smi, brick_network, tmp)
         with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
             distributed = timed("distributed", phase_distributed, smi, tmp)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+            stages = timed("bench_stages", phase_bench_stages, smi, tmp)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     emit({"phase": "timing", "seconds": seconds, "total": sum(seconds.values())})
     emit(kernels_line(kern, bench, transfer, born, cli, [lane_kern] + batched, large_n,
-                      prob, distributed))
+                      prob, distributed, stages))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -46,6 +46,10 @@ for m in ("graph.mutable", "graph.surgery", "genetic", "genetic.codes", "genetic
     assert "tneq_tpu_torch." + m in names, m
 for m in ("parallel", "parallel.mesh", "parallel.mp", "utils.checkpoint", "utils._safetensors"):
     assert "tneq_tpu_torch." + m in names, m
+for m in ("backend", "utils.config", "utils.logging", "utils.callbacks", "utils.metrics",
+          "utils.profiling", "utils.dtypes", "utils.plots", "bench.flops", "bench.microbench",
+          "bench.run_all", "bench.util_peak"):
+    assert "tneq_tpu_torch." + m in names, m
 """
 
 
@@ -217,17 +221,8 @@ def test_matmul_precision_scoped():
 
 
 # names of JAX's subpackage __all__ lists that the port does not export yet,
-# each with the ROADMAP item that ports it
-_NOT_YET = {
-    "bench": ({"ALL_STAGES", "stage_checkpoint_io", "stage_collectives",
-               "stage_dtype_policy", "stage_env_audit", "stage_large_network",
-               "stage_matmul_peak", "stage_memory_bandwidth", "stage_tn_workload",
-               "stage_transpose_cost"}, "13a"),
-    "utils": ({"AgentBehavior", "CallbackList", "Colors", "Configuration",
-               "EvolutionProperty", "Experiment", "ExperimentRecorder",
-               "GenerationProperty", "OverlordProperty", "StepTimer", "annotate",
-               "setup_colored_logger", "setup_logger", "trace"}, "12b"),
-}
+# each with the ROADMAP item that ports it: none is left
+_NOT_YET = {}
 
 
 def _exported(path):

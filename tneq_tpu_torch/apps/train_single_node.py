@@ -8,8 +8,9 @@ plus ``--device`` (default ``cuda``)::
     python -m tneq_tpu_torch.apps.train_single_node --device cpu --steps 20
 
 ``--save`` writes the trained cores to a safetensors file with the graph
-type in its metadata (``QCTN.save_cores``); ``--profile`` waits for
-``utils/profiling.py`` (ROADMAP A, item 12b) and raises.  MPS chains
+type in its metadata (``QCTN.save_cores``); ``--profile DIR`` writes a
+torch.profiler Chrome trace of the training loop into ``DIR``
+(``utils/profiling.trace``; each step is a ``train_step`` span).  MPS chains
 take the transfer sweep, the other graph types the pairwise einsum path
 (``ops/compiler.compile_siamese``).
 """
@@ -17,6 +18,7 @@ take the transfer sweep, the other graph types the pairwise einsum path
 from __future__ import annotations
 
 import argparse
+import contextlib
 import time
 from typing import Optional, Sequence
 
@@ -26,6 +28,7 @@ import torch
 from ..graph.generators import example_graph
 from ..model.qctn import QCTN
 from ..train.trainer import Trainer, TrainingConfig, basis_states
+from ..utils.profiling import trace
 
 __all__ = ["main"]
 
@@ -53,10 +56,6 @@ def main(argv: Optional[Sequence[str]] = None):
                    help="directory for a profiler trace of the run")
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     args = p.parse_args(argv)
-    if args.profile:
-        raise NotImplementedError(
-            "--profile waits for the port's utils/profiling.py (ROADMAP A, item 12b)"
-        )
 
     dtype = torch.complex64 if args.dtype == "complex64" else torch.float32
     src = example_graph(args.num_qubits, args.graph_type, args.dim)
@@ -85,7 +84,8 @@ def main(argv: Optional[Sequence[str]] = None):
     states = basis_states(model.graph, dtype=dtype, device=model.device)
 
     t0 = time.time()
-    params, stats = trainer.fit(model.params, data_list, states=states)
+    with trace(args.profile) if args.profile else contextlib.nullcontext():
+        params, stats = trainer.fit(model.params, data_list, states=states)
     dt = time.time() - t0
     print(f"trained {stats.steps} steps in {dt:.1f}s "
           f"({stats.steps / max(dt, 1e-9):.1f} steps/s); "

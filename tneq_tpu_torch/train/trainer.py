@@ -23,6 +23,7 @@ from ..ops.transfer_step import kernel_supported
 from ..optim.factory import make_optimizer
 from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import annotate
 from .losses import nll_loss
 
 __all__ = ["TrainingConfig", "TrainingStats", "Trainer", "basis_states"]
@@ -199,7 +200,10 @@ class Trainer:
         t0 = time.time()
         for step_idx in range(cfg.max_steps):
             x = data_list[step_idx % len(data_list)]
-            params, opt_state, loss_val = self._step(params, opt_state, states, x)
+            # the step's span in a profiler trace (JAX's trace names the
+            # jitted step by its program)
+            with annotate("train_step"):
+                params, opt_state, loss_val = self._step(params, opt_state, states, x)
             loss_f = float(loss_val)
             stats.losses.append(loss_f)
             stats.steps = step_idx + 1
