@@ -21,26 +21,32 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
 4. experiment — the symmetry-breaking experiment, MPS topology, network
    fidelity, end to end (target → validate → prune), plus a 20-step
    validation fit held against the same fit on the host;
-5. transfer_kernels — the transfer-sweep kernel, B3 (float32) and B4
-   (complex64, ``csrc/transfer_step.cu``), against its plain version at
-   (B, D, K) in {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)}, and
-   at the wide cores (32, 32, 32), (32, 64, 16) that it reads from global
-   memory, n in {1, 5} sites, forward and the backward's d_env chain (the same
-   kernel, sites reversed, cores transposed), with its plan, its times
-   (CUDA events around one call, and the card's own time from
-   torch.profiler, also per site), the bound of the whole sweep and, at
-   n = 1, the time of the one ``torch.einsum`` call that computes a step;
+5. transfer_kernels — the transfer-sweep kernels, B3 (float32) and B4
+   (complex64, ``csrc/transfer_step.cu``), against their plain version at
+   (B, D, K) in {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)} (the
+   narrow route; the last also timed on the wide route) and at the wide
+   route's (32, 32, 32), (32, 64, 16), (32, 128, 4), (31, 40, 12) and
+   (512, 64, 16), n in {1, 5} sites, forward and the backward's d_env chain
+   (the same kernel, sites reversed, cores transposed), with the plan and
+   its route, the times (CUDA events around one call, and the card's own
+   time from torch.profiler, also per site), the bound of the whole sweep
+   on the CUDA cores and on the tensor cores (3xTF32) and, at n = 1, the
+   time of the one ``torch.einsum`` call that computes a step;
 6. born_rule — the Born-rule Trainer at full width: 8 qubits, bond 8,
    Hermite order 4, batch 512, float32, SGD-G, 200 steps; the losses of the
    first 20 steps against the host's loss at the card's cores, a falling
    loss, B3 = 2 launches per step (one 5-site sweep forward, one d_env
-   sweep backward), B4 = 0;
+   sweep backward), B4 = 0; then the same trainer at bond 64, Hermite order
+   16 (the wide route) for 5 steps: B3 = 2 per step, step 0's loss and
+   probabilities against the host's;
 7. cli — ``apps.train_single_node.main`` at its defaults (complex64, 8
    qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 2 launches per step,
    finite losses, the first 20 against the same run on the host; then
-   ``--dim 32`` (complex64 cores of 256 KiB) for 3 steps, B4 = 2 per step;
-   then ``--profile DIR`` at the defaults, cut to 5 steps: the Chrome trace
-   it writes names B4's ``transfer_sweep_kernel`` and holds one
+   ``--dim 32`` (complex64 cores of 256 KiB, the wide route), one warm step
+   and 3 timed steps, B4 = 2 per step; then the CLI's trainer at bond 128,
+   Hermite order 4 (fault C3) for 3 steps, B4 = 2 per step, step 0 against
+   the host; then ``--profile DIR`` at the defaults, cut to 5 steps: the
+   Chrome trace it writes names B4's ``transfer_sweep_kernel`` and holds one
    ``train_step`` span per step;
 8. brick — the reference experiment's default at full width: the 8-qubit,
    5-cell, rank-2 brick wall (35 cores), complex64, SGD-G, dense fidelity,
@@ -238,14 +244,21 @@ SWEEP_BONDS = (3, 16, 32)  # S = 9 (ragged), 256 (bench), 1024 (the cap)
 BENCH_STEPS = 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOPS = 67e12  # H100 SXM, float32 outside the tensor cores
-# B3/B4 against their plain versions, per site: the same f32 sums of at
-# most D^2 K^2 = 4096 terms in another order
+TF32_FLOPS = 495e12  # H100 SXM, TF32 on the tensor cores (dense)
+# B3/B4 against their plain versions, per site: the same f32 sums in
+# another order (3xTF32 products on the wide route, each 8-deep k-step
+# added in float32)
 TOL_STEP = 2e-5
 STEP_SHAPES = ((130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4))  # (B, D, K)
-# cores of 256 KiB and more, which the plan reads from global memory:
-# train_single_node --dim 32 (complex64), and D = 64, K = 16 (float32)
-WIDE_SHAPES = ((32, 32, 32), (32, 64, 16))
-WIDE_STEPS = 3  # steps of train_single_node --dim 32 in the cli phase
+ROUTE_SHAPE = (4096, 16, 4)  # timed on both routes
+# the wide route: train_single_node --dim 32 (complex64), D = 64 at K = 16,
+# fault C3's bond 128 at K = 4, a ragged (31, 40, 12), and a batch of 512
+WIDE_SHAPES = ((32, 32, 32), (32, 64, 16), (32, 128, 4), (31, 40, 12), (512, 64, 16))
+WIDE_STEPS = 3  # timed steps of train_single_node --dim 32 in the cli phase
+C3_SHAPE = (32, 128, 4)  # the cli phase's trainer at bond 128 (fault C3)
+C3_STEPS = 3
+WIDE_BORN_SHAPE = (512, 64, 16)  # the born_rule phase's trainer on the wide route
+WIDE_BORN_STEPS = 5
 BORN_SHAPE = (512, 8, 4)  # the born_rule phase's transfer steps
 CLI_SHAPE = (32, 3, 3)  # the cli phase's
 BORN_STEPS = 200
@@ -573,6 +586,19 @@ def sweep_bound(n: int, B: int, D: int, K: int, complex_: bool) -> dict:
     nbytes = elem * (B * D * D + n * (D * K * D + B * K * K + B * D * D))
     flops = n * 2 * B * (2 * D ** 3 * K + D * D * K * K) * (4 if complex_ else 1)
     return _bound(nbytes, flops)
+
+
+def tc_sweep_bound(n: int, B: int, D: int, K: int, complex_: bool) -> dict:
+    """The wide route's least time for the sweep of :func:`sweep_bound`: the
+    same bytes; its products on the tensor cores as 3xTF32 (three TF32
+    products per product, at 495 TFLOP/s) and its float32 adds (one per
+    output and 8-deep k-step: 1/16 of the flops) at 67 TFLOP/s."""
+    elem = 8 if complex_ else 4
+    nbytes = elem * (B * D * D + n * (D * K * D + B * K * K + B * D * D))
+    flops = n * 2 * B * (2 * D ** 3 * K + D * D * K * K) * (4 if complex_ else 1)
+    t = (nbytes / HBM_BYTES_PER_S, 3 * flops / TF32_FLOPS, flops / 16 / FP32_FLOPS)
+    return {"tc_bound_ms": max(t) * 1e3,
+            "tc_bound_by": ("bytes", "tensor cores", "operations")[t.index(max(t))]}
 
 
 def rel_err(k, p, scale=None) -> float:
@@ -925,18 +951,26 @@ def phase_transfer_kernels() -> dict:
                 plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
                 env, a, mx = _sweep_inputs(n, B, D, K, complex_, seed=B + D + n, dev=dev)
                 g = _sweep_inputs(1, B, D, K, complex_, seed=B + D + n + 1, dev=dev)[0]
-                kf, pf = ts._launch(env, a, mx, complex_), plain(env, a, mx)
-                # the backward's d_env chain: the same kernel, sites reversed
-                kb = ts._launch(g, a, mx, complex_, backward=True)
-                pb = plain(g, a, mx, backward=True)
-                torch.cuda.synchronize()
-                err = {"fwd": max(rel_err(k, p) for k, p in zip(kf, pf)),
-                       "d_env": max(rel_err(k, p) for k, p in zip(kb, pb))}
-                calls = {
-                    "": lambda: ts._launch(env, a, mx, complex_),
-                    "bwd_": lambda: ts._launch(g, a, mx, complex_, backward=True),
-                    "plain_": lambda: plain(env, a, mx),
-                }
+                plan = ts.kernel_plan(B, D, K, D, env.dtype, n)
+                # the route the plan takes, and at ROUTE_SHAPE the other one too
+                routes = [plan.route] + (["narrow" if plan.route == "wide" else "wide"]
+                                         if (B, D, K) == ROUTE_SHAPE else [])
+                pf, pb = plain(env, a, mx), plain(g, a, mx, backward=True)
+                err, abs_err, calls = {}, 0.0, {}
+                for r in routes:
+                    pre = "" if r == plan.route else f"{r}_"
+                    kf = ts._launch(env, a, mx, complex_, route=r)
+                    # the backward's d_env chain: the same kernel, sites reversed
+                    kb = ts._launch(g, a, mx, complex_, backward=True, route=r)
+                    torch.cuda.synchronize()
+                    err[f"{pre}fwd"] = max(rel_err(k, p) for k, p in zip(kf, pf))
+                    err[f"{pre}d_env"] = max(rel_err(k, p) for k, p in zip(kb, pb))
+                    abs_err = max(abs_err, float((kf - pf).abs().max()),
+                                  float((kb - pb).abs().max()))
+                    calls[pre] = lambda r=r: ts._launch(env, a, mx, complex_, route=r)
+                    calls[f"{pre}bwd_"] = lambda r=r: ts._launch(g, a, mx, complex_,
+                                                                backward=True, route=r)
+                calls["plain_"] = lambda: plain(env, a, mx)
                 if n == 1:  # one torch.einsum computes one step
                     bra = a[0].conj() if complex_ else a[0]
                     calls["library_"] = lambda: torch.einsum(
@@ -945,10 +979,10 @@ def phase_transfer_kernels() -> dict:
                 times.update({f"{k}device_ms": device_ms(fn) for k, fn in calls.items()})
                 case = {
                     "kernel": name, "n": n, "B": B, "D": D, "K": K,
-                    "plan": ts.kernel_plan(B, D, K, D, env.dtype, n)._asdict(),
+                    "route": plan.route,
+                    "plan": plan._asdict(),
                     "rel_err": err,
-                    "max_abs_err": max(float((kf - pf).abs().max()),
-                                       float((kb - pb).abs().max())),
+                    "max_abs_err": abs_err,
                     **times,
                     "library_ms": times.get("library_ms"),
                     "library_device_ms": times.get("library_device_ms"),
@@ -957,6 +991,7 @@ def phase_transfer_kernels() -> dict:
                     "bwd_per_site_device_us": (times["bwd_device_ms"] * 1e3 / n
                                                if times["bwd_device_ms"] else None),
                     **sweep_bound(n, B, D, K, complex_),
+                    **tc_sweep_bound(n, B, D, K, complex_),
                 }
                 cases.append(case)
                 bad = {k: v for k, v in err.items() if not v <= TOL_STEP}
@@ -964,6 +999,64 @@ def phase_transfer_kernels() -> dict:
                                f"with its plain version beyond {TOL_STEP}: {bad}")
     rec = {"phase": "transfer_kernels", "tolerance": TOL_STEP, "cases": cases}
     emit(rec)
+    return rec
+
+
+def _wide_trainer(D: int, K: int, B: int, dtype_name: str, steps: int) -> dict:
+    """The Born-rule Trainer (``TrainingConfig()``: SGD-G lr 1e-2 momentum
+    0.9) on ``mps_graph(8, D, phys=K)`` at batch ``B`` of the CLI's data
+    (numpy seed 0), whose sweeps take the wide route: ``steps`` steps on
+    the card with their launch counts and seconds, and step 0's loss and
+    the Born-rule probabilities at the initial cores against the host's."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params, params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.ops import transfer_step as ts
+    from tneq_tpu_torch.train.trainer import Trainer, TrainingConfig, basis_states
+
+    dtype = getattr(torch, dtype_name)
+    graph = parse_graph(mps_graph(8, D, phys=K))
+    p_np = params_to_numpy(init_params(graph, 0, dtype, device="cpu"))
+    x = np.random.default_rng(0).normal(size=(B, 8)).astype(np.float32)
+    at_init = {}
+    for where in ("cuda", "cpu"):
+        tr = Trainer(graph, config=TrainingConfig(max_steps=steps, log_every=0), dtype=dtype,
+                     device=where)
+        states = basis_states(graph, dtype=dtype, device=where)
+        xs = torch.as_tensor(x, device=where)
+        with torch.no_grad():
+            params = params_from_numpy(p_np, where)
+            at_init[where] = (tr.probability(params, states, xs).cpu(),
+                              float(tr.loss(params, states, xs)))
+        if where == "cuda":
+            ts.reset_launch_counts()
+            t0 = time.perf_counter()
+            _, stats = tr.fit(params_from_numpy(p_np, where), [xs], states=states,
+                              verbose=False)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            counts = ts.launch_counts()
+    (pc, lc), (ph, lh) = at_init["cuda"], at_init["cpu"]
+    name = "transfer_step_complex" if dtype.is_complex else "transfer_step"
+    rec = {
+        "program": f"Trainer on mps_graph(8, {D}, phys={K}), {dtype_name}, batch {B}, "
+                   f"TrainingConfig() (sgdg lr 1e-2 momentum 0.9)",
+        "plan": ts.kernel_plan(B, D, K, D, dtype, MIDDLE_STEPS)._asdict(),
+        "steps": steps, "seconds": dt, "steps_per_s": steps / dt,
+        "losses": [float(v) for v in stats.losses],
+        "step0_loss_card": float(stats.losses[0]), "loss_at_init_card": lc,
+        "loss_at_init_host": lh, "step0_rel_err": abs(stats.losses[0] - lh) / abs(lh),
+        "probability_rel_err": rel_err(pc, ph), "probability_max": float(ph.abs().max()),
+        "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
+    }
+    check(bool(np.isfinite(stats.losses).all()), f"{rec['program']}: non-finite loss")
+    check(counts[name] == 2 * steps and sum(counts.values()) == 2 * steps,
+          f"{rec['program']}: launch counts {counts}, expected {name} = {2 * steps}")
+    check(rec["step0_rel_err"] <= TOL_STEP0 and rec["probability_rel_err"] <= TOL_STEP0,
+          f"{rec['program']}: step 0 against the host: loss rel {rec['step0_rel_err']}, "
+          f"probabilities rel {rec['probability_rel_err']}")
     return rec
 
 
@@ -1035,6 +1128,7 @@ def phase_born_rule(smi: str) -> dict:
         box["i"] += 1
 
     prof = _profile_steps(one_step, dt / BORN_STEPS * 1e3)
+    wide = _wide_trainer(*WIDE_BORN_SHAPE[1:], WIDE_BORN_SHAPE[0], "float32", WIDE_BORN_STEPS)
     rec = {
         "phase": "born_rule",
         "program": "Trainer on mps_graph(8, 8, phys=4), float32, TrainingConfig() "
@@ -1053,6 +1147,7 @@ def phase_born_rule(smi: str) -> dict:
         "launches": counts,
         "launches_per_step": {k: v / BORN_STEPS for k, v in counts.items()},
         "profile": prof,
+        "wide": wide,
         "card": smi,
     }
     emit(rec)
@@ -1083,9 +1178,12 @@ def phase_cli(smi: str) -> dict:
           f"cli launch counts {counts}, expected B4 = {per_step * CLI_STEPS}, B3 = 0")
     rel = [abs(c - h) / abs(h) for c, h in zip(stats.losses, host.losses)]
     check(max(rel) <= TOL_STEP0, f"cli: first {CHECK_STEPS} losses card vs host, rel {max(rel)}")
-    # --dim 32: complex64 cores of 256 KiB, which B4's plan reads from global
-    # memory (its sweeps are held against the plain version in the
-    # transfer_kernels phase)
+    # --dim 32: complex64 cores of 256 KiB, which B4's plan runs on the wide
+    # route (its sweeps are held against the plain version in the
+    # transfer_kernels phase); one warm step, then WIDE_STEPS timed
+    with contextlib.redirect_stdout(sys.stderr):
+        cli_main(["--dim", "32", "--steps", "1", "--device", "cuda"])
+    torch.cuda.synchronize()
     ts.reset_launch_counts()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(sys.stderr):
@@ -1096,6 +1194,9 @@ def phase_cli(smi: str) -> dict:
     check(bool(np.isfinite(wide.losses).all()), "cli --dim 32: non-finite loss")
     check(wide_counts == {"transfer_step": 0, "transfer_step_complex": per_step * WIDE_STEPS},
           f"cli --dim 32 launch counts {wide_counts}, expected B4 = {per_step * WIDE_STEPS}")
+    # fault C3: the CLI's trainer at bond 128, Hermite order 4 (the CLI itself
+    # ties the physical rank to --dim, which K = 4 cannot measure)
+    c3 = _wide_trainer(*C3_SHAPE[1:], C3_SHAPE[0], "complex64", C3_STEPS)
     # --profile: the defaults for PROFILE_STEPS steps under torch.profiler; the
     # Chrome trace must name B4's kernel and one train_step span per step
     ts.reset_launch_counts()
@@ -1135,7 +1236,9 @@ def phase_cli(smi: str) -> dict:
         "launches": counts,
         "launches_per_step": {k: v / CLI_STEPS for k, v in counts.items()},
         "wide": {"argv": ["--dim", "32", "--steps", str(WIDE_STEPS)], "seconds": dt_wide,
+                 "steps_per_s": WIDE_STEPS / dt_wide, "after_warm_steps": 1,
                  "losses": [float(x) for x in wide.losses], "launches": wide_counts},
+        "c3": c3,
         "profile": {"argv": ["--steps", str(PROFILE_STEPS), "--profile", "DIR"],
                     "reduced": {"steps": PROFILE_STEPS}, "seconds": dt_prof,
                     "trace_bytes": trace_bytes, "trace_events": len(events),
@@ -3841,6 +3944,14 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "launches_per_step": dist["b_trainer_cli"]["launches_per_step"][
                 "transfer_step_complex"]},
     }
+    # the wide route's paths: phase 6's trainer at bond 64 (B3), phase 7's
+    # --dim 32 and bond-128 trainer (B4)
+    wide_launches = {
+        "transfer_step": {"born_rule_wide": born["wide"]["launches"]["transfer_step"]},
+        "transfer_step_complex": {
+            "cli_dim32": cli["wide"]["launches"]["transfer_step_complex"],
+            "cli_trainer_bond128": cli["c3"]["launches"]["transfer_step_complex"]},
+    }
     for name, run, shape in (("transfer_step", born, BORN_SHAPE),
                              ("transfer_step_complex", cli, CLI_SHAPE)):
         meta = _KERNELS[name]
@@ -3858,8 +3969,10 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             # the training run's, phase 11 (c)'s probability, phase 14's and
             # (B4) the cli phase's profiled run
             "launches": run["launches"][name] + prob["born_rule"]["launches"][name]
-            + dist_launches[name]["launches"] + cli["profile"]["launches"][name],
+            + dist_launches[name]["launches"] + cli["profile"]["launches"][name]
+            + sum(wide_launches[name].values()),
             "distributed": dist_launches[name],
+            "wide_route_launches": wide_launches[name],
             "launches_per_step": run["launches_per_step"][name],
             "max_abs_err": case["max_abs_err"],
             "ms": case["ms"],
@@ -3878,6 +3991,16 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                                              "library_device_ms", "bound_ms")},
             "plan": case["plan"],
             "shape": {"n": MIDDLE_STEPS, "B": shape[0], "D": shape[1], "K": shape[2]},
+            # every shape of phase 5 off the main path's: the wide route's,
+            # and ROUTE_SHAPE on both routes
+            "other_shapes": [
+                {k: c.get(k) for k in (
+                    "n", "B", "D", "K", "route", "max_abs_err", "ms", "device_ms",
+                    "bwd_device_ms", "plain_device_ms", "library_device_ms", "bound_ms",
+                    "bound_by", "tc_bound_ms", "tc_bound_by", "narrow_device_ms",
+                    "narrow_bwd_device_ms", "wide_device_ms", "wide_bwd_device_ms")}
+                for c in transfer["cases"]
+                if c["kernel"] == name and (c["B"], c["D"], c["K"]) != shape],
         })
     return {"kernels": rows}
 

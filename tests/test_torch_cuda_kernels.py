@@ -120,11 +120,12 @@ TOL_STEP = 2e-5  # max|kernel - plain| / max|plain| per site: the same f32 sums 
 # (B, Da, K, Dc) of one step; a sweep of n > 1 sites needs square cores
 _STEP_SHAPES = [
     (130, 3, 2, 3), (32, 3, 3, 3), (512, 8, 4, 8), (7, 3, 2, 5),
-    (3, 40, 8, 40),  # complex64: one entry's T1/T2 outgrow shared memory, column strips
-    # cores of 256 KiB and more, read from global memory (stages = 0):
-    # complex64 and float32 at (32, 32, 32), float32 at (64, 16, 64), and
-    # both at (64, 8, 64)
-    (32, 32, 32, 32), (32, 64, 16, 64), (3, 64, 8, 64),
+    # the wide route (a cluster per group of entries, 3xTF32 on the tensor
+    # cores): the cores of train_single_node --dim 32 and of D = 64, K = 16,
+    # fault C3's (32, 128, 4), ragged bonds and ranks (40, 12) and (40, 8),
+    # a batch of 512, and a one-site step between bonds 24 and 40
+    (3, 40, 8, 40), (32, 32, 32, 32), (32, 64, 16, 64), (3, 64, 8, 64),
+    (32, 128, 4, 128), (31, 40, 12, 40), (512, 64, 16, 64), (5, 24, 3, 40),
 ]
 _SWEEP_CASES = [(n, *shape) for n in (1, 2, 5) for shape in _STEP_SHAPES
                 if n == 1 or shape[1] == shape[3]]
@@ -219,21 +220,68 @@ def test_transfer_wrapper_refuses_what_the_kernel_does_not_take(dev):
         ts._launch(env[:, :2, :2].contiguous(), a, mx, False)
     with pytest.raises(ValueError, match="square cores"):
         ts._launch(env, _sweep_inputs(2, 8, 3, 2, 4, False, dev)[1], mx, False)
-    big = _sweep_inputs(2, 2, 128, 8, 128, True, dev)  # two env buffers of 256 KiB
+    big = _sweep_inputs(2, 2, 257, 2, 257, True, dev)  # past the widest bond, 256
     with pytest.raises(ValueError, match="does not fit"):
         ts.transfer_sweep_complex(*big)
     with pytest.raises(ValueError, match="float32"):
         ts.transfer_step(env.double(), a[0].double(), mx[0].double())
 
 
+@pytest.mark.parametrize("complex_", [False, True])
+def test_nan_in_mx_reaches_the_envs_after_it_on_the_wide_route(dev, complex_):
+    n, B, D, K, site, z = 5, 32, 64, 16, 2, 7
+    env, a, mx = _sweep_inputs(n, B, D, K, D, complex_, dev)
+    assert ts.kernel_plan(B, D, K, D, env.dtype, n).route == "wide"
+    mx[site, z, 3, 11] = float("nan")
+    kf = ts._launch(env, a, mx, complex_)
+    kb = ts._launch(env, a, mx, complex_, backward=True)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(kf[site:, z]).all()) and bool(torch.isfinite(kf[:site]).all())
+    assert bool(torch.isnan(kb[:site + 1, z]).all()) and bool(torch.isfinite(kb[site + 1:]).all())
+    others = torch.ones(B, dtype=torch.bool, device=dev)
+    others[z] = False
+    plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
+    assert _rel_sites(kf[:, others], plain(env, a, mx)[:, others]) <= TOL_STEP
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_wide_route_autograd_on_the_card_matches_the_host(dev, complex_):
+    env, a, mx = _sweep_inputs(5, 8, 40, 12, 40, complex_, dev)
+    assert ts.kernel_plan(8, 40, 12, 40, env.dtype, 5).route == "wide"
+    fn = ts.transfer_sweep_complex if complex_ else ts.transfer_sweep
+    name = "transfer_step_complex" if complex_ else "transfer_step"
+    results = []
+    for where in ("cuda", "cpu"):
+        leaves = [x.to(where).clone().requires_grad_(True) for x in (env, a, mx)]
+        ts.reset_launch_counts()
+        out = fn(*leaves)
+        (out.abs() ** 2).sum().backward()
+        assert ts.launch_counts()[name] == (2 if where == "cuda" else 0)
+        results.append([out.detach().cpu()] + [x.grad.cpu() for x in leaves])
+    for c, h in zip(*results):
+        assert _rel(c, h) <= 1e-5
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+def test_both_routes_agree_at_the_narrow_routes_widest_batch(dev, complex_):
+    """(4096, 16, 4) runs on either route (phase 5 times both)."""
+    env, a, mx = _sweep_inputs(5, 4096, 16, 4, 16, complex_, dev)
+    plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
+    ref = plain(env, a, mx)
+    for route in ("narrow", "wide"):
+        assert ts.kernel_plan(4096, 16, 4, 16, env.dtype, 5, route).route == route
+        assert _rel_sites(ts._launch(env, a, mx, complex_, route=route), ref) <= TOL_STEP
+    torch.cuda.synchronize()
+
+
 # ---------------------------------------------------------------------------
-# wide cores through B4 (ROADMAP C1) and the brick-wall contraction on the card
+# wide cores through B4 (ROADMAP C1, C3) and the brick-wall contraction on the card
 # ---------------------------------------------------------------------------
 
 
 def test_wide_cores_train_on_the_card_through_the_kernel(dev):
     """``train_single_node --dim 32``: complex64 cores of 32 x 32 x 32 x 32
-    outgrow B4's shared memory, so its plan reads them from global memory;
+    outgrow one block's shared memory, so B4's plan takes the wide route;
     the sweep still runs as one B4 launch each way per step."""
     import contextlib
     import io
@@ -457,3 +505,39 @@ def test_fsdp_step_on_the_card_launches_b1_b2_and_keeps_the_padding(dev):
         arrays, o, _ = step(arrays, o, t_arrays)
     ident = torch.eye(256, device=dev).reshape(16, 16, 16, 16)
     assert torch.equal(arrays[0][7], ident)
+
+
+def test_c3_bond_128_born_rule_chain_trains_through_b4(dev):
+    """Fault C3: the CLI's trainer (complex64, batch 32, SGD-G lr 1e-2
+    momentum 0.9) on an MPS chain of bond 128 and physical rank 4, whose
+    sweeps (32, 128, 4) the narrow plan refused.  (``train_single_node
+    --dim 128 --K 4`` builds cores of physical rank 128, which K = 4 does
+    not measure, in both packages: the trainer is driven directly.)  Two B4
+    launches per step; step 0's loss within 1e-4 of the host's, and the
+    Born-rule probabilities at the initial cores too (the loss sits at its
+    clip, -log 1e-10, at this initialisation)."""
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params, params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.train.trainer import Trainer, TrainingConfig, basis_states
+
+    graph = parse_graph(mps_graph(8, 128, phys=4))
+    p_np = params_to_numpy(init_params(graph, 0, torch.complex64, device="cpu"))
+    x = np.random.default_rng(0).normal(size=(32, 8)).astype(np.float32)
+    losses, probs = {}, {}
+    for where, steps in (("cuda", 3), ("cpu", 1)):
+        tr = Trainer(graph, config=TrainingConfig(max_steps=steps, log_every=0),
+                     dtype=torch.complex64, device=where)
+        assert ts.kernel_plan(32, 128, 4, 128, torch.complex64, 6).route == "wide"
+        states = basis_states(graph, dtype=torch.complex64, device=where)
+        with torch.no_grad():
+            probs[where] = tr.probability(params_from_numpy(p_np, where), states,
+                                          torch.as_tensor(x, device=where)).cpu()
+        ts.reset_launch_counts()
+        _, stats = tr.fit(params_from_numpy(p_np, where), [torch.as_tensor(x, device=where)],
+                          states=states, verbose=False)
+        losses[where] = stats.losses
+        if where == "cuda":
+            assert ts.launch_counts() == {"transfer_step": 0, "transfer_step_complex": 2 * steps}
+            assert np.isfinite(stats.losses).all() and len(stats.losses) == 3
+    assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-4 * abs(losses["cpu"][0])
+    assert _rel(probs["cuda"], probs["cpu"]) <= 1e-4

@@ -195,14 +195,15 @@ def _j_chain_value(g_src, p_np, states, x, K, jdt):
 
 # (64, 16) float32 and (32, 32) complex64: one core needs 262144 bytes, more
 # shared memory than a block of an H100 has (232448), so the kernel's plan
-# reads the cores from global memory (stages = 0) instead of staging them.
-# The strategy "mps_sweep" (use_kernel=False) takes the einsum step,
-# "mps_sweep_cuda" the kernel's wrapper (its plain version on the CPU).
+# takes the wide route (a cluster streams the cores through its CTAs'
+# shared memory).  The strategy "mps_sweep" (use_kernel=False) takes the
+# einsum step, "mps_sweep_cuda" the kernel's wrapper (its plain version on
+# the CPU).
 @pytest.mark.parametrize("remat", [False, True])
 @pytest.mark.parametrize("D,K,dtype", [(64, 16, torch.float32), (32, 32, torch.complex64)])
 def test_wide_cores_take_the_einsum_step(monkeypatch, D, K, dtype, remat):
     plan = ts.kernel_plan(2, D, K, D, dtype, 2)
-    assert plan.stages == 0 and plan.smem <= ts.SMEM_MAX
+    assert plan.route == "wide" and plan.cluster > 1 and plan.smem <= ts.SMEM_MAX
     assert ts.kernel_plan(2, 8, 4, 8, dtype, 2).stages == 2
     src = mps_graph(5, D, phys=K)
     g = t_parse(src)

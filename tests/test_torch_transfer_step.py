@@ -139,17 +139,22 @@ def test_kernel_gates():
         ts.kernel_plan(8, 2, 2, 2, torch.float64)
     # the slice width, one site: four batch entries per block (128 blocks),
     # all columns at once, 2x2 register tiles, no second stage
-    assert ts.kernel_plan(512, 8, 4, 8, torch.float32) == (4, 8, 2, 1, 11552)
-    # wide D: many entries share a block's copy of A, in strips of columns
-    zb, ct, tile, stages, smem = ts.kernel_plan(4096, 16, 4, 16, torch.complex64)
+    assert ts.kernel_plan(512, 8, 4, 8, torch.float32)[:5] == (4, 8, 2, 1, 11552)
+    # wide D on the narrow route: many entries share a block's copy of A, in
+    # strips of columns
+    zb, ct, tile, stages, smem = ts.kernel_plan(4096, 16, 4, 16, torch.complex64,
+                                                route="narrow")[:5]
     assert zb == 16 and ct == 8 and tile == 4 and smem <= ts.SMEM_MAX
     # one entry's intermediates outgrow shared memory: strips of columns
-    zb, ct, _, _, smem = ts.kernel_plan(8, 64, 8, 64, torch.float32)
+    zb, ct, _, _, smem = ts.kernel_plan(8, 64, 8, 64, torch.float32, route="narrow")[:5]
     assert zb == 1 and 1 <= ct < 64 and smem <= ts.SMEM_MAX
-    # the core does not fit next to one entry's intermediates: read from
-    # global memory, nothing staged
-    zb, ct, _, stages, smem = ts.kernel_plan(8, 64, 8, 64, torch.complex64)
-    assert stages == 0 and 1 <= ct < 64 and smem <= ts.SMEM_MAX
-    # one entry's two env buffers alone do not fit: refused with the reason
+    # the core does not fit next to one entry's intermediates: the wide
+    # route, its strips of columns on the CTAs of a cluster
+    plan = ts.kernel_plan(8, 64, 8, 64, torch.complex64)
+    zb, ct, _, stages, smem = plan[:5]
+    assert plan.route == "wide" and stages == 1 and 1 <= ct < 64 and smem <= ts.SMEM_MAX
+    # one entry's two env buffers alone outgrow a block: the wide route splits
+    # them over its cluster (fault C3); past bond 256 the plan refuses
+    assert ts.kernel_plan(8, 128, 8, 128, torch.complex64, n=2).route == "wide"
     with pytest.raises(ValueError, match="does not fit"):
-        ts.kernel_plan(8, 128, 8, 128, torch.complex64, n=2)
+        ts.kernel_plan(8, 257, 8, 257, torch.complex64, n=2)

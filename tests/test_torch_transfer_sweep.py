@@ -134,10 +134,14 @@ def test_plain_backward_chain_is_the_d_env_of_each_site(complex_):
 @pytest.mark.parametrize("n", [1, 5])
 @pytest.mark.parametrize("B,Da,K,Dc", [(B, D, K, D) for B, D, K in STEP_SHAPES] + [(3, 40, 8, 40)])
 def test_kernel_plan_fits(B, Da, K, Dc, n, complex_):
+    """The narrow route's plan (forced at (3, 40, 8, 40), whose default is
+    now the wide route)."""
     dtype = torch.complex64 if complex_ else torch.float32
     elem = 8 if complex_ else 4
-    zb, ct, tile, stages, smem = plan = ts.kernel_plan(B, Da, K, Dc, dtype, n)
-    assert plan == ts.kernel_plan(B, Da, K, Dc, dtype, n)  # shape and dtype alone
+    plan = ts.kernel_plan(B, Da, K, Dc, dtype, n, route="narrow")
+    zb, ct, tile, stages, smem = plan[:5]
+    assert plan == ts.kernel_plan(B, Da, K, Dc, dtype, n, route="narrow")  # shape and dtype alone
+    assert plan.route == "narrow" and plan.cluster == 1
     assert smem <= ts.SMEM_MAX == 232448
     assert 1 <= zb <= ts.MAX_ZB and 1 <= ct <= Dc and tile in (1, 2, 4)
     assert 1 <= stages <= min(n, ts.MAX_STAGES)
@@ -151,35 +155,134 @@ def test_kernel_plan_fits(B, Da, K, Dc, n, complex_):
         assert zb > 1  # many entries share a block's copy of A at wide D
     if (B, Da, complex_) == (3, 40, True):
         assert ct < Dc  # one entry's T1/T2 outgrow shared memory: column strips
+    expected = "wide" if Da >= ts.WIDE_D else "narrow"
+    assert ts.kernel_plan(B, Da, K, Dc, dtype, n).route == expected
 
 
 def test_kernel_plan_refuses_what_does_not_fit():
     with pytest.raises(ValueError, match="square cores"):
         ts.kernel_plan(8, 3, 2, 4, torch.float32, n=2)
+    # past the widest bond and physical rank the routes take
     with pytest.raises(ValueError, match="does not fit"):
-        ts.kernel_plan(8, 128, 8, 128, torch.complex64, n=5)
+        ts.kernel_plan(8, 257, 8, 257, torch.complex64, n=5)
+    with pytest.raises(ValueError, match="does not fit"):
+        ts.kernel_plan(8, 16, 65, 16, torch.float32, n=5)
     # a two-site sweep whose prefetch stage does not fit runs with one stage
-    assert ts.kernel_plan(3, 40, 8, 40, torch.complex64, n=2).stages == 1
+    assert ts.kernel_plan(3, 40, 8, 40, torch.complex64, n=2, route="narrow").stages == 1
     # the born_rule sweep stages all five sites at the start
     assert ts.kernel_plan(512, 8, 4, 8, torch.float32, n=5).stages == 5
     assert ts.kernel_plan(512, 8, 4, 8, torch.float32, n=12).stages == ts.MAX_STAGES
 
 
+def _wide_checks(plan, B, Da, K, Dc, dtype, n):
+    """What ``csrc/transfer_step.cu``'s ``wide_ok`` checks, for both
+    directions of the sweep."""
+    cx = dtype.is_complex
+    D = max(Da, Dc)
+    zb, cs, tile, stages, smem = plan[:5]
+    assert plan.route == "wide" and tile == 0 and stages == 1
+    assert 1 <= zb <= ts.MAX_WIDE_ZB and cs % 8 == 0 and cs <= ts.MAX_STRIP
+    assert 1 <= plan.cluster <= 16
+    assert plan.cluster * cs >= D > (plan.cluster - 1) * cs
+    assert plan.bc % 16 == 0 and 1 <= plan.kg <= K and plan.lc % 8 == 0
+    assert plan.ka % 8 == 0 and plan.qt % 8 == 0 and plan.bc % plan.qt == 0
+    assert 1 <= plan.lt <= plan.lc and (plan.lt == 1 or plan.qt == plan.bc)
+    assert 3 <= plan.ring <= ts.MAX_RING and smem <= ts.SMEM_MAX
+    for bwd in (False, True):
+        lay = ts._wide_layout(n, Da, K, Dc, cx, bwd, zb, cs, plan.bc, plan.kg, plan.lc,
+                              plan.ka, plan.qt, plan.lt, plan.ring)
+        assert lay["N3"] <= ts.MAX_TILES3 * ts.WARPS  # the warps hold phase 3's outputs
+        assert plan.ring - 2 <= lay["m_last"]  # the site's Mx is not overwritten early
+        assert lay["smem"] <= smem
+    ctas = plan.cluster * -(-B // zb)
+    if B * plan.cluster >= ts.NUM_SMS:
+        assert ctas >= ts.NUM_SMS  # the launch covers the card's SMs
+
+
+# The wide route over a sampled grid: bonds up to 256 (edges, powers of two,
+# odd widths) by physical ranks up to 64, three batches, both dtypes, n = 1
+# and 5 -- 2 x 2 x 17 x 8 x 3 = 1632 plans in 68 cases.
+_GRID_D = [32, 33, 40, 47, 64, 72, 96, 100, 120, 127, 128, 160, 192, 200, 224, 255, 256]
+_GRID_K = [1, 2, 3, 4, 12, 16, 33, 64]
+
+
+@pytest.mark.parametrize("complex_", [False, True])
+@pytest.mark.parametrize("n", [1, 5])
+@pytest.mark.parametrize("D", _GRID_D)
+def test_wide_plans_fit_over_a_grid(D, n, complex_):
+    dtype = torch.complex64 if complex_ else torch.float32
+    for K in _GRID_K:
+        for B in (1, 31, 512):
+            plan = ts.kernel_plan(B, D, K, D, dtype, n)
+            _wide_checks(plan, B, D, K, D, dtype, n)
+
+
 # cores of 256 KiB and more: train_single_node --dim 32 (B = 32, D = K =
-# 32, complex64), D = 64 K = 16 in float32, and (8, 64, 8) in complex64
+# 32, complex64), D = 64 K = 16 in float32, (8, 64, 8) in complex64, the
+# widths of fault C3 and a ragged (31, 40, 12): the wide route, whose
+# cluster holds the env and streams the core through shared memory; the
+# name is that of the stages = 0 plans this route replaced
 @pytest.mark.parametrize("B,D,K,complex_", [(32, 32, 32, True), (32, 64, 16, False),
-                                            (8, 64, 8, True), (512, 64, 16, False)])
+                                            (8, 64, 8, True), (512, 64, 16, False),
+                                            (32, 128, 4, True), (512, 192, 4, False),
+                                            (31, 40, 12, True), (32, 32, 32, False)])
 @pytest.mark.parametrize("n", [1, 5])
 def test_kernel_plan_reads_wide_cores_from_global_memory(B, D, K, complex_, n):
     dtype = torch.complex64 if complex_ else torch.float32
-    elem = 8 if complex_ else 4
-    zb, ct, tile, stages, smem = ts.kernel_plan(B, D, K, D, dtype, n)
-    assert elem * D * K * D >= 262144 > ts.SMEM_MAX  # one core alone outgrows a block
-    assert stages == 0 and smem <= ts.SMEM_MAX
-    envs = 2 if n > 1 else 1
-    assert smem == elem * zb * (envs * D * D + 2 * ((D * K * (ct | 1)) | 1))
-    assert 1 <= zb <= ts.MAX_ZB and 1 <= ct <= D and tile in (1, 2, 4)
-    assert ct >= min(D, ts.MIN_STRIP) or zb == 1
+    plan = ts.kernel_plan(B, D, K, D, dtype, n)
+    _wide_checks(plan, B, D, K, D, dtype, n)
+    assert plan == ts.kernel_plan(B, D, K, D, dtype, n, route="wide")
+    # the strips of the cluster's CTAs cover the columns, eight at least each
+    assert plan.ct * plan.cluster >= D and plan.ct >= 8
+
+
+@pytest.mark.parametrize("B,D,K,dtype", [(32, 128, 4, torch.complex64),
+                                         (512, 192, 4, torch.float32)])
+def test_c3_born_rule_chains_beyond_one_block_plan(B, D, K, dtype):
+    """Fault C3: one entry's double-buffered env outgrew one block's shared
+    memory (complex64 from D = 120), so the card refused these sweeps."""
+    plan = ts.kernel_plan(B, D, K, D, dtype, 6)
+    assert plan.route == "wide" and plan.smem <= ts.SMEM_MAX
+    envs = 2 * D * D * (8 if dtype.is_complex else 4)
+    assert envs > ts.SMEM_MAX or dtype == torch.float32  # no block could hold it whole
+    with pytest.raises(ValueError):
+        ts.kernel_plan(B, D, K, D, dtype, 6, route="narrow")
+
+
+def test_route_rule():
+    """Narrow at the Born-rule widths, wide where the narrow kernel lost to
+    one torch.einsum call (PERF.md, phase 5), both at the rule's edge."""
+    for B, D, K in ((130, 3, 2), (32, 3, 3), (512, 8, 4)):
+        for dtype in (torch.float32, torch.complex64):
+            for n in (1, 5):
+                assert ts.kernel_plan(B, D, K, D, dtype, n).route == "narrow"
+    for B, D, K in ((32, 64, 16), (32, 32, 32)):
+        for dtype in (torch.float32, torch.complex64):
+            for n in (1, 5):
+                assert ts.kernel_plan(B, D, K, D, dtype, n).route == "wide"
+    assert ts.kernel_plan(8, 31, 4, 31, torch.float32, 2).route == "narrow"
+    assert ts.kernel_plan(8, 32, 4, 32, torch.float32, 2).route == "wide"
+    # a narrow-width core too large for one block takes the wide route
+    assert ts.kernel_plan(8, 24, 64, 24, torch.complex64, 2).route == "wide"
+    with pytest.raises(ValueError, match="route"):
+        ts.kernel_plan(8, 8, 4, 8, torch.float32, 2, route="fast")
+
+
+def test_narrow_step_shapes_keep_their_plans():
+    """The three narrow STEP_SHAPES plan field for field as before the wide
+    route was added."""
+    f32, c64 = torch.float32, torch.complex64
+    expected = {
+        (130, 3, 2, f32, 1): (1, 3, 1, 1, 276), (130, 3, 2, f32, 5): (1, 3, 1, 5, 664),
+        (130, 3, 2, c64, 1): (1, 3, 1, 1, 552), (130, 3, 2, c64, 5): (1, 3, 1, 5, 1328),
+        (32, 3, 3, f32, 1): (1, 3, 1, 1, 396), (32, 3, 3, f32, 5): (1, 3, 1, 5, 1008),
+        (32, 3, 3, c64, 1): (1, 3, 1, 1, 792), (32, 3, 3, c64, 5): (1, 3, 1, 5, 2016),
+        (512, 8, 4, f32, 1): (4, 8, 2, 1, 11552), (512, 8, 4, f32, 5): (4, 8, 2, 5, 17696),
+        (512, 8, 4, c64, 1): (4, 8, 2, 1, 23104), (512, 8, 4, c64, 5): (4, 8, 2, 5, 35392),
+    }
+    for (B, D, K, dtype, n), fields in expected.items():
+        plan = ts.kernel_plan(B, D, K, D, dtype, n)
+        assert plan.route == "narrow" and tuple(plan[:5]) == fields
 
 
 def _chain(kind):

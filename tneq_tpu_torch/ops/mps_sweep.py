@@ -13,8 +13,9 @@ PyTorch runs ``torch.einsum`` as a chain of separate launches with
 (``ops/transfer_step.py``) run all the middle steps of a sweep in one
 launch, and its d_env backward in one more.
 
-The kernels take float32 (B3) and complex64 (B4) at every width their
-plan covers (wide cores read from global memory); on the card anything
+The kernels take float32 (B3) and complex64 (B4) at every bond up to 256
+and physical rank up to 64 (wide cores take the kernels' cluster route on
+the tensor cores, ``ops/transfer_step.kernel_plan``); on the card anything
 else raises.  A float64 or complex128 chain takes the sweep without them
 (``use_kernel=False``, the strategy ``mps_sweep`` of
 ``ops/compiler.compile_siamese``, JAX's ``use_pallas=False``): one
