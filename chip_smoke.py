@@ -26,7 +26,9 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    (B, D, K) in {(130, 3, 2), (32, 3, 3), (512, 8, 4), (4096, 16, 4)} (the
    narrow route; the last also timed on the wide route) and at the wide
    route's (32, 32, 32), (32, 64, 16), (32, 128, 4), (31, 40, 12) and
-   (512, 64, 16), n in {1, 5} sites, forward and the backward's d_env chain
+   (512, 64, 16), n in {1, 5} sites, and at the corners of the gate
+   (bonds up to 256, physical ranks up to 64) (32, 256, 4), (32, 32, 64)
+   and (32, 256, 64), n in {1, 2}; forward and the backward's d_env chain
    (the same kernel, sites reversed, cores transposed), with the plan and
    its route, the times (CUDA events around one call, and the card's own
    time from torch.profiler, also per site), the bound of the whole sweep
@@ -38,16 +40,20 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    loss, B3 = 2 launches per step (one 5-site sweep forward, one d_env
    sweep backward), B4 = 0; then the same trainer at bond 64, Hermite order
    16 (the wide route) for 5 steps: B3 = 2 per step, step 0's loss and
-   probabilities against the host's;
+   probabilities against the host's; then at bond 8, Hermite order 72, batch
+   32 (fault C4: past the gate's ranks) for 3 steps: strategy
+   ``mps_sweep``, no B3/B4 launch, step 0 against the host;
 7. cli — ``apps.train_single_node.main`` at its defaults (complex64, 8
    qubits, dim 3, batch 32, SGD-G), 200 steps; B4 = 2 launches per step,
    finite losses, the first 20 against the same run on the host; then
    ``--dim 32`` (complex64 cores of 256 KiB, the wide route), one warm step
    and 3 timed steps, B4 = 2 per step; then the CLI's trainer at bond 128,
    Hermite order 4 (fault C3) for 3 steps, B4 = 2 per step, step 0 against
-   the host; then ``--profile DIR`` at the defaults, cut to 5 steps: the
-   Chrome trace it writes names B4's ``transfer_sweep_kernel`` and holds one
-   ``train_step`` span per step;
+   the host; then at bond 264 (fault C4: past the gate's bonds) for 3
+   steps, strategy ``mps_sweep``, no launch, step 0 against the host, and
+   ``use_kernel=True`` on that chain raising; then ``--profile DIR`` at
+   the defaults, cut to 5 steps: the Chrome trace it writes names B4's
+   ``transfer_sweep_kernel`` and holds one ``train_step`` span per step;
 8. brick — the reference experiment's default at full width: the 8-qubit,
    5-cell, rank-2 brick wall (35 cores), complex64, SGD-G, dense fidelity,
    the planted 20-core mask.  Its dense target (4^8 entries) against the
@@ -148,7 +154,10 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    per position: the sliced log-overlap value as (a)'s within float32
    rounding, each rank's summed gradient as the one-process gradient, 3 fit
    steps with bit-equal replicas.  (c) ``EngineSiamese(mesh=...)`` at the
-   README Quick start's width against ``mesh=None``, and the sliced CLI
+   README Quick start's width against ``mesh=None``; with a ``{"data":
+   1}`` mesh (fault C5) on a complex128 chain, no B3/B4 launch, and on
+   the same cores in complex64 one B4 launch, each against ``mesh=None``;
+   and the sliced CLI
    (``--slice-devices 2``) at 4 x 2 on card and host.  (d)
    ``train_single_node --save`` at its defaults (B4 = 2 launches per
    step), the file read back by ``QCTN.from_pretrained`` on the card bit
@@ -254,6 +263,23 @@ ROUTE_SHAPE = (4096, 16, 4)  # timed on both routes
 # the wide route: train_single_node --dim 32 (complex64), D = 64 at K = 16,
 # fault C3's bond 128 at K = 4, a ragged (31, 40, 12), and a batch of 512
 WIDE_SHAPES = ((32, 32, 32), (32, 64, 16), (32, 128, 4), (31, 40, 12), (512, 64, 16))
+# the corners of the gate (ops/transfer_step.transfer_sweep_supported: bonds
+# up to 256, physical ranks up to 64), at 1 and 2 sites, timed over
+# EDGE_REPS calls.  A 2-site B4 sweep at (32, 256, 64) takes ~7 s on the
+# wide route, so a kernel pass whose checked call takes HEAVY_MS or more
+# runs once: its time is the CUDA events' around that call, which at such
+# lengths equal the profiler's device time to 5 digits (and a one-call
+# trace came back without device events, or with part of them, in a whole
+# run)
+EDGE_SHAPES = ((32, 256, 4), (32, 32, 64), (32, 256, 64))
+EDGE_SITES = (1, 2)
+EDGE_REPS = 5
+HEAVY_MS = 100.0
+# fault C4: chains past the gate take the kernel-free sweep ("mps_sweep");
+# (B, D, K) of mps_graph(8, D, phys=K) in the born_rule and the cli phase
+C4_F32_SHAPE = (32, 8, 72)
+C4_C64_SHAPE = (32, 264, 4)
+C4_STEPS = 3
 WIDE_STEPS = 3  # timed steps of train_single_node --dim 32 in the cli phase
 C3_SHAPE = (32, 128, 4)  # the cli phase's trainer at bond 128 (fault C3)
 C3_STEPS = 3
@@ -938,6 +964,19 @@ def _sweep_inputs(n: int, B: int, D: int, K: int, complex_: bool, seed: int, dev
     return mk(B, D, D), mk(n, D, K, D, scale=1.0 / (D * K)), mk(n, B, K, K)
 
 
+def _timed_once(fn):
+    """``(fn(), CUDA-event ms)`` of one call on an idle card."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def phase_transfer_kernels() -> dict:
     import torch
 
@@ -945,8 +984,10 @@ def phase_transfer_kernels() -> dict:
 
     dev = torch.device("cuda", 0)
     cases = []
-    for B, D, K in STEP_SHAPES + WIDE_SHAPES:
-        for n in (1, MIDDLE_STEPS):
+    for B, D, K in STEP_SHAPES + WIDE_SHAPES + EDGE_SHAPES:
+        edge = (B, D, K) in EDGE_SHAPES
+        reps = EDGE_REPS if edge else 20
+        for n in EDGE_SITES if edge else (1, MIDDLE_STEPS):
             for name, complex_ in (("transfer_step", False), ("transfer_step_complex", True)):
                 plain = ts.transfer_sweep_complex_plain if complex_ else ts.transfer_sweep_plain
                 env, a, mx = _sweep_inputs(n, B, D, K, complex_, seed=B + D + n, dev=dev)
@@ -956,29 +997,35 @@ def phase_transfer_kernels() -> dict:
                 routes = [plan.route] + (["narrow" if plan.route == "wide" else "wide"]
                                          if (B, D, K) == ROUTE_SHAPE else [])
                 pf, pb = plain(env, a, mx), plain(g, a, mx, backward=True)
-                err, abs_err, calls = {}, 0.0, {}
+                err, abs_err, calls, once = {}, 0.0, {}, {}
                 for r in routes:
                     pre = "" if r == plan.route else f"{r}_"
-                    kf = ts._launch(env, a, mx, complex_, route=r)
+                    fwd = lambda r=r: ts._launch(env, a, mx, complex_, route=r)  # noqa: E731
                     # the backward's d_env chain: the same kernel, sites reversed
-                    kb = ts._launch(g, a, mx, complex_, backward=True, route=r)
+                    bwd = lambda r=r: ts._launch(g, a, mx, complex_,  # noqa: E731
+                                                 backward=True, route=r)
+                    (kf, f_ms), (kb, b_ms) = _timed_once(fwd), _timed_once(bwd)
+                    if edge and min(f_ms, b_ms) >= HEAVY_MS:
+                        once = {"ms": f_ms, "device_ms": f_ms, "bwd_ms": b_ms,
+                                "bwd_device_ms": b_ms, "timed_by": "cuda_events_one_call"}
+                    else:
+                        calls[pre], calls[f"{pre}bwd_"] = fwd, bwd
                     torch.cuda.synchronize()
                     err[f"{pre}fwd"] = max(rel_err(k, p) for k, p in zip(kf, pf))
                     err[f"{pre}d_env"] = max(rel_err(k, p) for k, p in zip(kb, pb))
                     abs_err = max(abs_err, float((kf - pf).abs().max()),
                                   float((kb - pb).abs().max()))
-                    calls[pre] = lambda r=r: ts._launch(env, a, mx, complex_, route=r)
-                    calls[f"{pre}bwd_"] = lambda r=r: ts._launch(g, a, mx, complex_,
-                                                                backward=True, route=r)
                 calls["plain_"] = lambda: plain(env, a, mx)
                 if n == 1:  # one torch.einsum computes one step
                     bra = a[0].conj() if complex_ else a[0]
                     calls["library_"] = lambda: torch.einsum(
                         "zab,akc,zkl,bld->zcd", env, a[0], mx[0], bra)
-                times = {f"{k}ms": cuda_ms(fn) for k, fn in calls.items()}
-                times.update({f"{k}device_ms": device_ms(fn) for k, fn in calls.items()})
+                times = {f"{k}ms": cuda_ms(fn, reps, warmup=1 if edge else 3)
+                         for k, fn in calls.items()}
+                times.update({f"{k}device_ms": device_ms(fn, reps) for k, fn in calls.items()})
+                times.update(once)
                 case = {
-                    "kernel": name, "n": n, "B": B, "D": D, "K": K,
+                    "kernel": name, "n": n, "B": B, "D": D, "K": K, "edge": edge, "reps": reps,
                     "route": plan.route,
                     "plan": plan._asdict(),
                     "rel_err": err,
@@ -1002,12 +1049,15 @@ def phase_transfer_kernels() -> dict:
     return rec
 
 
-def _wide_trainer(D: int, K: int, B: int, dtype_name: str, steps: int) -> dict:
+def _wide_trainer(D: int, K: int, B: int, dtype_name: str, steps: int,
+                  strategy: str = "mps_sweep_cuda") -> dict:
     """The Born-rule Trainer (``TrainingConfig()``: SGD-G lr 1e-2 momentum
     0.9) on ``mps_graph(8, D, phys=K)`` at batch ``B`` of the CLI's data
-    (numpy seed 0), whose sweeps take the wide route: ``steps`` steps on
-    the card with their launch counts and seconds, and step 0's loss and
-    the Born-rule probabilities at the initial cores against the host's."""
+    (numpy seed 0), whose sweeps take the wide route (``strategy``
+    ``"mps_sweep_cuda"``: 2 launches per step) or, past the gate, the
+    einsum step (``"mps_sweep"``: none): ``steps`` steps on the card with
+    their launch counts and seconds, and step 0's loss and the Born-rule
+    probabilities at the initial cores against the host's."""
     import numpy as np
     import torch
 
@@ -1024,6 +1074,8 @@ def _wide_trainer(D: int, K: int, B: int, dtype_name: str, steps: int) -> dict:
     for where in ("cuda", "cpu"):
         tr = Trainer(graph, config=TrainingConfig(max_steps=steps, log_every=0), dtype=dtype,
                      device=where)
+        check(tr.strategy == strategy, f"Trainer on mps_graph(8, {D}, phys={K}), {dtype_name}: "
+                                       f"strategy {tr.strategy}, expected {strategy}")
         states = basis_states(graph, dtype=dtype, device=where)
         xs = torch.as_tensor(x, device=where)
         with torch.no_grad():
@@ -1040,10 +1092,13 @@ def _wide_trainer(D: int, K: int, B: int, dtype_name: str, steps: int) -> dict:
             counts = ts.launch_counts()
     (pc, lc), (ph, lh) = at_init["cuda"], at_init["cpu"]
     name = "transfer_step_complex" if dtype.is_complex else "transfer_step"
+    per_step = 2 if strategy == "mps_sweep_cuda" else 0
     rec = {
         "program": f"Trainer on mps_graph(8, {D}, phys={K}), {dtype_name}, batch {B}, "
                    f"TrainingConfig() (sgdg lr 1e-2 momentum 0.9)",
-        "plan": ts.kernel_plan(B, D, K, D, dtype, MIDDLE_STEPS)._asdict(),
+        "strategy": strategy,
+        "plan": (ts.kernel_plan(B, D, K, D, dtype, MIDDLE_STEPS)._asdict() if per_step
+                 else None),
         "steps": steps, "seconds": dt, "steps_per_s": steps / dt,
         "losses": [float(v) for v in stats.losses],
         "step0_loss_card": float(stats.losses[0]), "loss_at_init_card": lc,
@@ -1052,12 +1107,37 @@ def _wide_trainer(D: int, K: int, B: int, dtype_name: str, steps: int) -> dict:
         "launches": counts, "launches_per_step": {k: v / steps for k, v in counts.items()},
     }
     check(bool(np.isfinite(stats.losses).all()), f"{rec['program']}: non-finite loss")
-    check(counts[name] == 2 * steps and sum(counts.values()) == 2 * steps,
-          f"{rec['program']}: launch counts {counts}, expected {name} = {2 * steps}")
+    check(counts[name] == per_step * steps and sum(counts.values()) == per_step * steps,
+          f"{rec['program']}: launch counts {counts}, expected {name} = {per_step * steps}")
     check(rec["step0_rel_err"] <= TOL_STEP0 and rec["probability_rel_err"] <= TOL_STEP0,
           f"{rec['program']}: step 0 against the host: loss rel {rec['step0_rel_err']}, "
           f"probabilities rel {rec['probability_rel_err']}")
     return rec
+
+
+def _explicit_kernel_raises(shape) -> str:
+    """``mps_sweep_siamese_fn(use_kernel=True)`` on the complex64 chain
+    ``mps_graph(8, D, phys=K)`` past the gate, on the card: the
+    ``ValueError`` it raises (the check fails if it computes)."""
+    import torch
+
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.ops.features import measurement_matrices
+    from tneq_tpu_torch.ops.mps_sweep import mps_sweep_siamese_fn
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    B, D, K = shape
+    graph = parse_graph(mps_graph(8, D, phys=K))
+    mx = measurement_matrices(torch.zeros(B, 8, device="cuda"), K).to(torch.complex64)
+    try:
+        mps_sweep_siamese_fn(graph, use_kernel=True)(
+            {n: torch.zeros(s, dtype=torch.complex64, device="cuda")
+             for n, s in graph.shapes.items()},
+            basis_states(graph, dtype=torch.complex64, device="cuda"),
+            [mx[:, q] for q in range(8)])
+    except ValueError as e:
+        return str(e)
+    raise SmokeFailure(f"use_kernel=True on mps_graph(8, {D}, phys={K}) computed")
 
 
 def phase_born_rule(smi: str) -> dict:
@@ -1129,6 +1209,8 @@ def phase_born_rule(smi: str) -> dict:
 
     prof = _profile_steps(one_step, dt / BORN_STEPS * 1e3)
     wide = _wide_trainer(*WIDE_BORN_SHAPE[1:], WIDE_BORN_SHAPE[0], "float32", WIDE_BORN_STEPS)
+    # fault C4: physical rank 72 is past the gate, so the einsum step
+    c4 = _wide_trainer(*C4_F32_SHAPE[1:], C4_F32_SHAPE[0], "float32", C4_STEPS, "mps_sweep")
     rec = {
         "phase": "born_rule",
         "program": "Trainer on mps_graph(8, 8, phys=4), float32, TrainingConfig() "
@@ -1148,6 +1230,7 @@ def phase_born_rule(smi: str) -> dict:
         "launches_per_step": {k: v / BORN_STEPS for k, v in counts.items()},
         "profile": prof,
         "wide": wide,
+        "c4_rank72": c4,
         "card": smi,
     }
     emit(rec)
@@ -1197,6 +1280,10 @@ def phase_cli(smi: str) -> dict:
     # fault C3: the CLI's trainer at bond 128, Hermite order 4 (the CLI itself
     # ties the physical rank to --dim, which K = 4 cannot measure)
     c3 = _wide_trainer(*C3_SHAPE[1:], C3_SHAPE[0], "complex64", C3_STEPS)
+    # fault C4: bond 264 is past the gate, so the einsum step; asked for
+    # explicitly, the kernel raises (nothing falls back)
+    c4 = _wide_trainer(*C4_C64_SHAPE[1:], C4_C64_SHAPE[0], "complex64", C4_STEPS, "mps_sweep")
+    c4["explicit_kernel_raises"] = _explicit_kernel_raises(C4_C64_SHAPE)
     # --profile: the defaults for PROFILE_STEPS steps under torch.profiler; the
     # Chrome trace must name B4's kernel and one train_step span per step
     ts.reset_launch_counts()
@@ -1239,6 +1326,7 @@ def phase_cli(smi: str) -> dict:
                  "steps_per_s": WIDE_STEPS / dt_wide, "after_warm_steps": 1,
                  "losses": [float(x) for x in wide.losses], "launches": wide_counts},
         "c3": c3,
+        "c4_bond264": c4,
         "profile": {"argv": ["--steps", str(PROFILE_STEPS), "--profile", "DIR"],
                     "reduced": {"steps": PROFILE_STEPS}, "seconds": dt_prof,
                     "trace_bytes": trace_bytes, "trace_events": len(events),
@@ -2695,6 +2783,49 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
+def _meshed_chain_engine(counts, reset) -> dict:
+    """Fault C5: ``EngineSiamese`` with a 1-position ``{"data": 1}`` mesh
+    compiles the chain sweep.  A complex128 chain (``mps_graph(8, dim=4,
+    phys=2)``) takes it without B3/B4 and matches the ``mesh=None`` engine
+    (pairwise einsum) within ``TOL_INFER``; the same cores in complex64 take
+    B4, one launch, a closure of their own."""
+    import numpy as np
+    import torch
+
+    from tneq_tpu_torch.engine import EngineSiamese
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import QCTN, init_params
+    from tneq_tpu_torch.parallel import make_mesh
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    g = parse_graph(mps_graph(8, dim=4, phys=2))
+    cores = init_params(g, 0, torch.complex64, device="cuda")
+    x = np.random.default_rng(0).normal(size=(ENGINE_BATCH, 8)).astype(np.float32)
+    eng = EngineSiamese(dtype=torch.complex128, device="cuda",
+                        mesh=make_mesh({"data": 1}, devices=["cuda:0"]))
+    mx, _ = eng.generate_data(x, K=2)
+    rec = {"program": "EngineSiamese(mesh={'data': 1}) on mps_graph(8, dim=4, phys=2)",
+           "tolerance": TOL_INFER}
+    for dtype in (torch.complex128, torch.complex64):
+        model = QCTN(g, {k: v.to(dtype) for k, v in cores.items()}, device="cuda")
+        states = basis_states(g, dtype=dtype, device="cuda")
+        ms = [m.to(dtype) for m in mx]
+        reset()
+        probs = eng.contract_with_compiled_strategy(model, states, ms)
+        torch.cuda.synchronize()
+        launched = counts()
+        plain = EngineSiamese(dtype=dtype, device="cuda").contract_with_compiled_strategy(
+            model, states, ms)
+        rec[str(dtype).split(".")[1]] = {"launches": launched,
+                                         "err_vs_no_mesh": _norm_err(probs, plain.cpu())}
+    wide, low = rec["complex128"], rec["complex64"]
+    check(sum(wide["launches"].values()) == 0 and wide["err_vs_no_mesh"] <= TOL_INFER,
+          f"meshed engine, complex128 chain: {wide}")
+    check(low["launches"]["transfer_step_complex"] == 1 and sum(low["launches"].values()) == 1
+          and low["err_vs_no_mesh"] <= TOL_INFER, f"meshed engine, complex64 chain: {low}")
+    return rec
+
+
 def phase_sliced(smi: str, unsliced: dict, tmp: str) -> list:
     """Phase 13: bond-sliced overlaps (parts a-c) and checkpoints (d), one
     JSON line per part."""
@@ -2847,6 +2978,7 @@ def phase_sliced(smi: str, unsliced: dict, tmp: str) -> list:
     eng_err = _norm_err(probs, plain.cpu())
     check(bool(torch.isfinite(probs).all()) and eng_err <= TOL_INFER,
           f"engine with a mesh vs mesh=None: {eng_err}")
+    c5 = _meshed_chain_engine(counts, reset)
     # seed 1: its first 4 x 2 target validates (seed 0's stalls and is drawn anew)
     cli = _cli_pair(["--fidelity-mode", "network", "--n-qubits", "4", "--n-cells", "2",
                      "--restarts", "1", "--prune-steps", "5", "--validate-steps", "100",
@@ -2855,6 +2987,7 @@ def phase_sliced(smi: str, unsliced: dict, tmp: str) -> list:
              "engine": {"program": "README Quick start (phase 11 b) with "
                                    f"mesh={{'model': {SLICED_POSITIONS}}} on cuda:0",
                         "err_vs_no_mesh": eng_err, "tolerance": TOL_INFER},
+             "c5_chain_engine": c5,
              "cli": {"argv": "--fidelity-mode network --n-qubits 4 --n-cells 2 --restarts 1 "
                              "--prune-steps 5 --validate-steps 100 --seed 1 --slice-devices "
                              f"{SLICED_POSITIONS}", **cli},
@@ -3952,6 +4085,8 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "cli_dim32": cli["wide"]["launches"]["transfer_step_complex"],
             "cli_trainer_bond128": cli["c3"]["launches"]["transfer_step_complex"]},
     }
+    # fault C4's chains past the gate: the einsum step, no launch
+    refused = {"transfer_step": born["c4_rank72"], "transfer_step_complex": cli["c4_bond264"]}
     for name, run, shape in (("transfer_step", born, BORN_SHAPE),
                              ("transfer_step_complex", cli, CLI_SHAPE)):
         meta = _KERNELS[name]
@@ -3973,6 +4108,7 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             + sum(wide_launches[name].values()),
             "distributed": dist_launches[name],
             "wide_route_launches": wide_launches[name],
+            "past_the_gate": {k: refused[name][k] for k in ("program", "strategy", "launches")},
             "launches_per_step": run["launches_per_step"][name],
             "max_abs_err": case["max_abs_err"],
             "ms": case["ms"],
@@ -3992,10 +4128,10 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
             "plan": case["plan"],
             "shape": {"n": MIDDLE_STEPS, "B": shape[0], "D": shape[1], "K": shape[2]},
             # every shape of phase 5 off the main path's: the wide route's,
-            # and ROUTE_SHAPE on both routes
+            # the gate's corners, and ROUTE_SHAPE on both routes
             "other_shapes": [
                 {k: c.get(k) for k in (
-                    "n", "B", "D", "K", "route", "max_abs_err", "ms", "device_ms",
+                    "n", "B", "D", "K", "edge", "route", "max_abs_err", "ms", "device_ms",
                     "bwd_device_ms", "plain_device_ms", "library_device_ms", "bound_ms",
                     "bound_by", "tc_bound_ms", "tc_bound_by", "narrow_device_ms",
                     "narrow_bwd_device_ms", "wide_device_ms", "wide_bwd_device_ms")}

@@ -127,8 +127,12 @@ _STEP_SHAPES = [
     (3, 40, 8, 40), (32, 32, 32, 32), (32, 64, 16, 64), (3, 64, 8, 64),
     (32, 128, 4, 128), (31, 40, 12, 40), (512, 64, 16, 64), (5, 24, 3, 40),
 ]
+# the corners of the gate (ops/transfer_step.transfer_sweep_supported):
+# bond 256, physical rank 64, and both; clusters of 16 CTAs, one entry each
+_EDGE_SHAPES = [(32, 256, 4, 256), (32, 32, 64, 32), (32, 256, 64, 256)]
 _SWEEP_CASES = [(n, *shape) for n in (1, 2, 5) for shape in _STEP_SHAPES
                 if n == 1 or shape[1] == shape[3]]
+_SWEEP_CASES += [(n, *shape) for n in (1, 2) for shape in _EDGE_SHAPES]
 
 
 def _sweep_inputs(n, B, Da, K, Dc, complex_, dev, seed=0):
@@ -541,3 +545,90 @@ def test_c3_bond_128_born_rule_chain_trains_through_b4(dev):
             assert np.isfinite(stats.losses).all() and len(stats.losses) == 3
     assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-4 * abs(losses["cpu"][0])
     assert _rel(probs["cuda"], probs["cpu"]) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the gate (ROADMAP C4, C5): chains past it take the einsum step on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("D,K,dtype", [(264, 4, torch.complex64), (8, 72, torch.float32)],
+                         ids=["c64-bond264", "f32-rank72"])
+def test_c4_chains_past_the_gate_train_through_the_einsum_step(dev, D, K, dtype):
+    """Fault C4: the CLI's trainer (batch 32, SGD-G lr 1e-2 momentum 0.9)
+    on ``mps_graph(8, D, phys=K)`` past the kernels' bonds (256) or ranks
+    (64), which the card refused: strategy ``"mps_sweep"``, no B3/B4
+    launch, 3 finite steps; step 0's loss and the Born-rule probabilities
+    at the initial cores within 1e-4 of the host's."""
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import init_params, params_from_numpy, params_to_numpy
+    from tneq_tpu_torch.train.trainer import Trainer, TrainingConfig, basis_states
+
+    graph = parse_graph(mps_graph(8, D, phys=K))
+    p_np = params_to_numpy(init_params(graph, 0, dtype, device="cpu"))
+    x = np.random.default_rng(0).normal(size=(32, 8)).astype(np.float32)
+    losses, probs = {}, {}
+    for where, steps in (("cuda", 3), ("cpu", 1)):
+        tr = Trainer(graph, config=TrainingConfig(max_steps=steps, log_every=0), dtype=dtype,
+                     device=where)
+        assert tr.strategy == "mps_sweep"
+        states = basis_states(graph, dtype=dtype, device=where)
+        with torch.no_grad():
+            probs[where] = tr.probability(params_from_numpy(p_np, where), states,
+                                          torch.as_tensor(x, device=where)).cpu()
+        ts.reset_launch_counts()
+        _, stats = tr.fit(params_from_numpy(p_np, where), [torch.as_tensor(x, device=where)],
+                          states=states, verbose=False)
+        losses[where] = stats.losses
+        assert ts.launch_counts() == {"transfer_step": 0, "transfer_step_complex": 0}
+    assert np.isfinite(losses["cuda"]).all() and len(losses["cuda"]) == 3
+    assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-4 * abs(losses["cpu"][0])
+    assert _rel(probs["cuda"], probs["cpu"]) <= 1e-4
+
+
+def test_c4_explicit_kernel_past_the_gate_raises(dev):
+    """``use_kernel=True`` on ``mps_graph(8, 264, phys=4)`` in complex64
+    raises ``ValueError`` on the card: nothing falls back."""
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.ops.features import measurement_matrices
+    from tneq_tpu_torch.ops.mps_sweep import mps_sweep_siamese_fn
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    graph = parse_graph(mps_graph(8, 264, phys=4))
+    mx = measurement_matrices(torch.zeros(32, 8, device=dev), 4).to(torch.complex64)
+    params = {n: torch.zeros(s, dtype=torch.complex64, device=dev)
+              for n, s in graph.shapes.items()}
+    with pytest.raises(ValueError, match="use_kernel=True"):
+        mps_sweep_siamese_fn(graph, use_kernel=True)(
+            params, basis_states(graph, dtype=torch.complex64, device=dev),
+            [mx[:, q] for q in range(8)])
+
+
+def test_c5_meshed_engine_takes_the_gate(dev):
+    """Fault C5: ``EngineSiamese`` on a 1-position ``{"data": 1}`` mesh
+    compiles the chain sweep.  A complex128 chain takes it without B3/B4
+    and matches the ``mesh=None`` engine within 1e-4; the same cores in
+    complex64 take B4 (one launch)."""
+    from tneq_tpu_torch.engine import EngineSiamese
+    from tneq_tpu_torch.graph import mps_graph, parse_graph
+    from tneq_tpu_torch.model.qctn import QCTN, init_params
+    from tneq_tpu_torch.parallel import make_mesh
+    from tneq_tpu_torch.train.trainer import basis_states
+
+    g = parse_graph(mps_graph(8, dim=4, phys=2))
+    cores = init_params(g, 0, torch.complex64, device=dev)
+    x = np.random.default_rng(0).normal(size=(32, 8)).astype(np.float32)
+    eng = EngineSiamese(dtype=torch.complex128, device=dev,
+                        mesh=make_mesh({"data": 1}, devices=["cuda:0"]))
+    mx, _ = eng.generate_data(x, K=2)
+    for dtype, launches in ((torch.complex128, 0), (torch.complex64, 1)):
+        model = QCTN(g, {k: v.to(dtype) for k, v in cores.items()}, device=dev)
+        states = basis_states(g, dtype=dtype, device=dev)
+        ms = [m.to(dtype) for m in mx]
+        ts.reset_launch_counts()
+        probs = eng.contract_with_compiled_strategy(model, states, ms)
+        torch.cuda.synchronize()
+        assert ts.launch_counts() == {"transfer_step": 0, "transfer_step_complex": launches}
+        plain = EngineSiamese(dtype=dtype, device=dev).contract_with_compiled_strategy(
+            model, states, ms)
+        assert bool(torch.isfinite(probs).all()) and _rel(probs, plain) <= 1e-4

@@ -123,9 +123,11 @@ def test_chain_checks():
     with pytest.raises(ValueError, match="not an MPS chain"):
         mps_sweep_siamese_fn(t_parse(wall_graph(4, layers=2, dim=2)))
     with pytest.raises(ValueError, match="conjugated bra"):
-        mps_sweep_siamese_fn(t_parse(mps_graph(4, dim=2)), conj_right=False)
-    # without the kernel the bra may be left unconjugated, as in JAX
+        mps_sweep_siamese_fn(t_parse(mps_graph(4, dim=2)), conj_right=False, use_kernel=True)
+    # without the kernel the bra may be left unconjugated, as in JAX; the
+    # gate (the default) then takes the einsum step
     mps_sweep_siamese_fn(t_parse(mps_graph(4, dim=2)), conj_right=False, use_kernel=False)
+    mps_sweep_siamese_fn(t_parse(mps_graph(4, dim=2)), conj_right=False)
 
 
 def test_compile_siamese_dispatch():

@@ -120,7 +120,8 @@ class EngineSiamese:
         graph, params = _resolve(qctn)
         sb = _states_batched(circuit_states_list)
         scaled = self.use_scaling or ret_type == "scaled"
-        key = ("fwd", graph.signature, sb, scaled,
+        dtype = next(iter(params.values())).dtype  # the chain's gate reads the cores' dtype
+        key = ("fwd", graph.signature, sb, scaled, dtype,
                tuple(tuple(m.shape) for m in measure_input_list))
         fwd = self._fwd_cache.get(key)
         if fwd is None:
@@ -133,7 +134,8 @@ class EngineSiamese:
 
             else:
                 if self.mesh is not None:
-                    contract, _ = compile_siamese(graph, mesh=self.mesh, states_batched=sb)
+                    contract, _ = compile_siamese(graph, mesh=self.mesh, states_batched=sb,
+                                                  dtype=dtype)
                 else:
                     contract = make_siamese_fn(graph, with_states, sb)
 

@@ -4,9 +4,10 @@ Counterpart of ``tneq_tpu/ops/compiler.py`` (``compile_siamese``,
 ``estimate_cost``).  Dispatch is structural:
 
 - an MPS chain with unbatched states and one batch axis on the measures
-  takes the transfer sweep (``ops/mps_sweep.py``), through the B3/B4
-  kernels when ``use_kernel`` (float32 and complex64 only: a caller in
-  another dtype passes ``use_kernel=False``, as ``Trainer`` does);
+  takes the transfer sweep (``ops/mps_sweep.py``): through the B3/B4
+  kernels (``"mps_sweep_cuda"``) where the gate
+  ``ops/mps_sweep.chain_takes_kernel`` takes the chain's shapes in the
+  ``dtype`` its caller gives, else without them (``"mps_sweep"``);
 - a mesh whose ``model`` axis is > 1 (or ``mode='sliced'``) takes the
   bond-sliced contraction over that axis (``parallel/mp.py``);
 - everything else takes the general einsum path (``ops/contract.py``:
@@ -15,13 +16,15 @@ Counterpart of ``tneq_tpu/ops/compiler.py`` (``compile_siamese``,
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
+
+import torch
 
 from ..graph.dsl import CircuitGraph
 from ..native.path import path_cost
 from .contract import make_siamese_fn
 from .einsum_spec import siamese_spec
-from .mps_sweep import is_mps_chain, mps_sweep_siamese_fn
+from .mps_sweep import chain_takes_kernel, is_mps_chain, mps_sweep_siamese_fn
 
 __all__ = ["compile_siamese", "estimate_cost"]
 
@@ -47,7 +50,8 @@ def compile_siamese(
     states_batched: bool = False,
     measure_extra_dims: int = 1,
     mode: str = "auto",
-    use_kernel: bool = True,
+    use_kernel: Optional[bool] = None,
+    dtype: torch.dtype = torch.complex64,
 ) -> Tuple[Callable, str]:
     """``(compute_fn, strategy_name)`` for the siamese contraction;
     ``compute_fn(params, states, measures)`` as ``make_siamese_fn``'s.
@@ -57,6 +61,12 @@ def compile_siamese(
     named ``"mps_sweep_cuda"`` with the kernels and ``"mps_sweep"`` without
     them; the einsum path ``"einsum_pairwise"`` (JAX's ``"einsum_xla"``);
     the sliced contraction ``"sliced_shard_map"``, JAX's name.
+
+    ``dtype`` is the cores' dtype (the port's default, as ``Trainer``'s and
+    ``EngineSiamese``'s).  ``use_kernel=None`` lets the gate
+    (``ops/mps_sweep.chain_takes_kernel``) choose the sweep from the
+    chain's shapes and ``dtype``; True or False forces it (True raises at
+    the first call where the gate refuses the chain).
     """
     if mode not in ("auto", "einsum", "mps_sweep", "sliced"):
         raise ValueError(f"unknown mode {mode!r}")
@@ -81,6 +91,8 @@ def compile_siamese(
     ):
         if not is_mps_chain(graph):
             raise ValueError("graph is not an MPS chain")
+        if use_kernel is None:
+            use_kernel = chain_takes_kernel(graph, dtype)
         name = "mps_sweep_cuda" if use_kernel else "mps_sweep"
         return mps_sweep_siamese_fn(graph, use_kernel=use_kernel), name
     return (

@@ -66,6 +66,7 @@ __all__ = [
     "transfer_step_plain",
     "transfer_step_complex_plain",
     "kernel_supported",
+    "transfer_sweep_supported",
     "kernel_plan",
     "SweepPlan",
     "launch_counts",
@@ -114,6 +115,16 @@ def kernel_supported(dtype: torch.dtype) -> bool:
     """True for the dtypes the kernels take: float32 (B3), complex64 (B4).
     Counterpart of JAX's ``pallas_supported``."""
     return dtype in (torch.float32, torch.complex64)
+
+
+def transfer_sweep_supported(Da: int, K: int, Dc: int, dtype: torch.dtype) -> bool:
+    """True where :func:`kernel_plan` takes steps ``[B,Da,Da], [Da,K,Dc] ->
+    [B,Dc,Dc]`` at every batch ``B`` and sweep length ``n``: float32 or
+    complex64, bonds up to ``MAX_WIDE_D`` and physical ranks up to
+    ``MAX_WIDE_K``.  The backward's d_env sweep runs the transposed steps
+    (``Dc, K, Da``), whose largest bond is the same, so one check covers
+    both passes.  The gate of ``ops/mps_sweep.chain_takes_kernel``."""
+    return kernel_supported(dtype) and max(Da, Dc) <= MAX_WIDE_D and K <= MAX_WIDE_K
 
 
 class SweepPlan(NamedTuple):
@@ -345,7 +356,7 @@ def kernel_plan(B: int, Da: int, K: int, Dc: int, dtype: torch.dtype, n: int = 1
         raise ValueError(f"empty transfer sweep: n={n}, B={B}, Da={Da}, K={K}, Dc={Dc}")
     if n > 1 and Da != Dc:
         raise ValueError(f"a sweep of {n} sites needs square cores, got Da={Da}, Dc={Dc}")
-    if max(Da, Dc) > MAX_WIDE_D or K > MAX_WIDE_K:
+    if not transfer_sweep_supported(Da, K, Dc, dtype):
         raise ValueError(
             f"transfer sweep Da={Da}, K={K}, Dc={Dc} ({dtype}) does not fit the kernels: "
             f"they take bonds up to {MAX_WIDE_D} and physical ranks up to {MAX_WIDE_K}")

@@ -19,7 +19,6 @@ from ..graph.dsl import CircuitGraph
 from ..ops.compiler import compile_siamese
 from ..ops.contract import abs_square
 from ..ops.features import measurement_matrices
-from ..ops.transfer_step import kernel_supported
 from ..optim.factory import make_optimizer
 from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
@@ -116,17 +115,17 @@ class Trainer:
         # The JAX Trainer contracts with make_siamese_fn
         # (tneq_tpu/train/trainer.py:113), which never reaches the Pallas
         # transfer step.  Here the contraction comes from compile_siamese, so
-        # chains take the sweep, through kernels B3/B4 in float32 and
-        # complex64 ("mps_sweep_cuda") and one torch.einsum per step in
-        # float64 and complex128 ("mps_sweep"); both are the same function on
-        # chains, and the parity tests hold the two Trainers against each
-        # other (ROADMAP C).  Other graphs (tree, wall, wall_col) take
+        # chains take the sweep: through kernels B3/B4 ("mps_sweep_cuda")
+        # where the gate ops/mps_sweep.chain_takes_kernel takes the chain in
+        # this dtype (float32 or complex64, bonds up to 256, physical ranks
+        # up to 64), else one torch.einsum per step ("mps_sweep"); both are
+        # the same function on chains, and the parity tests hold the two
+        # Trainers against each other (ROADMAP C).  Other graphs (tree, wall, wall_col) take
         # make_siamese_fn, as in JAX.  A ``mesh`` (``parallel.make_mesh``)
         # whose ``model`` axis is > 1 bond-slices the contraction over it
         # (``parallel/mp.py``; its batch rows over ``data`` in the rank
         # form), and the step sums the gradients over the ranks.
-        self._siamese, self.strategy = compile_siamese(
-            graph, mesh=mesh, use_kernel=kernel_supported(dtype))
+        self._siamese, self.strategy = compile_siamese(graph, mesh=mesh, dtype=dtype)
         self._reduce_gradients = getattr(self._siamese, "reduce_gradients", None)
 
     # -- forward ----------------------------------------------------------
