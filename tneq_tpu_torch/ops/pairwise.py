@@ -41,6 +41,7 @@ import torch
 import torch._C._functorch as _functorch
 
 from ..native.path import find_path
+from ..utils.profiling import annotate
 
 __all__ = [
     "CUDA_MAX_DIMS",
@@ -257,23 +258,24 @@ def execute_pairwise(
     """
     if contract_pair is None:
         contract_pair = einsum
-    dtype = functools.reduce(torch.promote_types, (o.dtype for o in operands))
-    ops = [o.to(dtype) for o in operands]
-    logs = None
-    for i, j, eq in steps:
-        a, b = ops[i], ops[j]
-        ops.pop(max(i, j))
-        ops.pop(min(i, j))
-        t = contract_pair(eq, a, b)
+    with annotate("pairwise.execute"):
+        dtype = functools.reduce(torch.promote_types, (o.dtype for o in operands))
+        ops = [o.to(dtype) for o in operands]
+        logs = None
+        for i, j, eq in steps:
+            a, b = ops[i], ops[j]
+            ops.pop(max(i, j))
+            ops.pop(min(i, j))
+            t = contract_pair(eq, a, b)
+            if rescale:
+                t, logs = _rescale(t, logs)
+            ops.append(t)
+        final = ops[0]
         if rescale:
-            t, logs = _rescale(t, logs)
-        ops.append(t)
-    final = ops[0]
-    if rescale:
-        if logs is None:  # zero steps (one operand)
-            logs = torch.zeros((), dtype=final.real.dtype, device=final.device)
-        return final, logs
-    return final
+            if logs is None:  # zero steps (one operand)
+                logs = torch.zeros((), dtype=final.real.dtype, device=final.device)
+            return final, logs
+        return final
 
 
 def rescaled_execute(

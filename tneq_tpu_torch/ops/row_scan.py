@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..graph.dsl import CircuitGraph, get_symbol
+from ..utils.profiling import annotate
 from .pairwise import (
     _TINY,
     _linear_path,
@@ -272,18 +273,19 @@ def make_row_scan_log_overlap_fn(
     rows = _schedule(graph, graph_b)
 
     def fn(params_a, params_b):
-        env, logs = None, None
-        for row in rows:
-            ops = [env] if row.has_env else []
-            ops += [params_a[nm] for nm in row.cores]
-            ops += [params_b[nm].conj() for nm in row.cores]
-            if row.steps is None:
-                out = einsum(row.equation, ops[0])
-            else:
-                out = execute_pairwise(row.steps, ops)
-            env, logs = _rescale(out, logs)
-        if signed:
-            return env, logs
-        return logs + torch.log(torch.abs(env) + _TINY)
+        with annotate("row_sweep.overlap"):
+            env, logs = None, None
+            for row in rows:
+                ops = [env] if row.has_env else []
+                ops += [params_a[nm] for nm in row.cores]
+                ops += [params_b[nm].conj() for nm in row.cores]
+                if row.steps is None:
+                    out = einsum(row.equation, ops[0])
+                else:
+                    out = execute_pairwise(row.steps, ops)
+                env, logs = _rescale(out, logs)
+            if signed:
+                return env, logs
+            return logs + torch.log(torch.abs(env) + _TINY)
 
     return fn

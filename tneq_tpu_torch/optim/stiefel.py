@@ -28,6 +28,8 @@ from typing import Callable, Dict, NamedTuple, Union
 import numpy as np
 import torch
 
+from ..utils.profiling import annotate
+
 __all__ = ["sgdg", "adamg", "qr_retraction", "matrix_norm_one", "unit_rows",
            "GradientTransformation"]
 
@@ -100,9 +102,10 @@ def _cayley_iterative(alpha, w, x, iters: int = 8):
 
 
 def _cayley(alpha, w, x, method: str = "solve", iters: int = 8):
-    if method == "solve":
-        return _cayley_solve(alpha, w, x)
-    return _cayley_iterative(alpha, w, x, iters)
+    with annotate("optim.cayley"):
+        if method == "solve":
+            return _cayley_solve(alpha, w, x)
+        return _cayley_iterative(alpha, w, x, iters)
 
 
 def _draw(gen: torch.Generator) -> float:

@@ -41,6 +41,7 @@ from torch.func import vmap
 from torch.utils._pytree import tree_map
 
 from ..utils.device import matmul_precision
+from ..utils.profiling import annotate
 
 __all__ = ["FitDrivers"]
 
@@ -75,15 +76,20 @@ class FitDrivers:
             opt_state = self.optimizer.init(params)
             metric = torch.tensor(self.init_metric, dtype=torch.float32)
             steps = 0
-            while steps < self.max_steps and bool(
-                self.running(np.float32(metric.item()))
-            ):
+            while steps < self.max_steps and self._any_running(metric):
                 for _ in range(steps_per_test(steps)):
                     params, opt_state, metric = self.step(
                         params, opt_state, mask, *shared
                     )
                     steps += 1
         return params, opt_state, steps, metric
+
+    def _any_running(self, metric) -> bool:
+        """The exit test: whether any lane of ``metric`` still runs, read
+        to the host in float32."""
+        with annotate("driver.exit_test"):
+            host = metric.detach().cpu().numpy().astype(np.float32)
+            return bool(np.asarray(self.running(host)).any())
 
     def chunk(self, k: int) -> Callable:
         """``chunk(params, opt_state, mask, *shared) -> (params, opt_state,
@@ -135,16 +141,16 @@ class FitDrivers:
         def lanes(x):
             return x.expand((b,) + tuple(x.shape)).contiguous() if _is_tensor(x) else x
 
-        with matmul_precision(self.matmul_precision):
+        with annotate("driver.batched"), matmul_precision(self.matmul_precision):
             opt_state = self.optimizer.init(params)
             run = self.batched_chunk(k, opt_state, len(shared))
             params_b = {n: lanes(v) for n, v in params.items()}
             opt_state_b = tree_map(lanes, opt_state)
             metric_b = torch.full((b,), self.init_metric, dtype=torch.float32)
             steps = 0
-            while steps < self.max_steps and bool(np.asarray(
-                self.running(metric_b.detach().cpu().numpy().astype(np.float32))
-            ).any()):
-                params_b, opt_state_b, metric_b = run(params_b, opt_state_b, masks, *shared)
+            while steps < self.max_steps and self._any_running(metric_b):
+                with annotate("driver.chunk"):
+                    params_b, opt_state_b, metric_b = run(params_b, opt_state_b, masks,
+                                                          *shared)
                 steps += k
         return params_b, opt_state_b, steps, metric_b

@@ -26,6 +26,7 @@ from ..ops.complex_pair import make_pair_core_only_fn, pair_fidelity
 from ..ops.contract import make_core_only_fn
 from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.profiling import annotate
 from ._fit_driver import FitDrivers
 from .losses import fidelity
 
@@ -178,11 +179,14 @@ def functional_step(loss_fn: Callable, optimizer: GradientTransformation,
     grad_fn = grad_and_value(loss_fn, has_aux=True)
 
     def step(params, opt_state, *args):
-        grads, (_, metric) = grad_fn(params, *args)
+        with annotate("step.grad"):
+            grads, (_, metric) = grad_fn(params, *args)
         if reduce_grads is not None:
             grads = reduce_grads(grads)
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        return {k: params[k] + updates[k] for k in params}, opt_state, metric
+        with annotate("step.update"):
+            updates, opt_state = optimizer.update(grads, opt_state, params)
+            params = {k: params[k] + updates[k] for k in params}
+        return params, opt_state, metric
 
     return step
 

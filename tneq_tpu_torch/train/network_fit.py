@@ -43,6 +43,7 @@ from ..ops.scaling import auto_scale
 from ..optim.stiefel import GradientTransformation
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.device import matmul_precision as _precision
+from ..utils.profiling import annotate
 from ._fit_driver import FitDrivers
 from .fit import FitResult, functional_step, identity_cores, masked_cores, pair_identity_cores
 
@@ -261,16 +262,18 @@ def make_masked_network_fidelity_fit(
         return generic_overlap(a, b)
 
     def neg_log_f(params, mask, target_eff_n, log_tt):
-        eff = _normalize(masked_cores(params, mask, idents, names, cast))
+        with annotate("loss.mask"):
+            eff = _normalize(masked_cores(params, mask, idents, names, cast))
         nlf = -(2.0 * log_abs_overlap(eff, target_eff_n)
                 - log_abs_overlap(eff, eff) - log_tt)
         return nlf, nlf
 
     def prepare(target_params, target_mask):
         """Loop-invariant target quantities, computed once per fit."""
-        with torch.no_grad(), _precision(matmul_precision):
-            target_eff_n = _normalize(masked_cores(target_params, target_mask, idents,
-                                                   names, cast))
+        with annotate("fit.prepare"), torch.no_grad(), _precision(matmul_precision):
+            with annotate("loss.mask"):
+                target_eff_n = _normalize(masked_cores(target_params, target_mask, idents,
+                                                       names, cast))
             return target_eff_n, log_abs_overlap(target_eff_n, target_eff_n)
 
     drivers = FitDrivers(
@@ -290,10 +293,11 @@ def make_masked_network_fidelity_fit(
     def batched(params, masks, target_params, target_mask, chunk_steps: int = 0) -> FitResult:
         """Lockstep lanes over mask rows (see ``FitDrivers.batched``); the
         target is prepared once and shared by the lanes."""
-        target_eff_n, log_tt = prepare(target_params, target_mask)
-        p_b, o_b, steps, nlf_b = drivers.batched(params, masks, target_eff_n, log_tt,
-                                                 chunk_steps=chunk_steps)
-        return FitResult(p_b, -torch.expm1(-nlf_b), steps, o_b)
+        with annotate("fit.batched"):
+            target_eff_n, log_tt = prepare(target_params, target_mask)
+            p_b, o_b, steps, nlf_b = drivers.batched(params, masks, target_eff_n, log_tt,
+                                                     chunk_steps=chunk_steps)
+            return FitResult(p_b, -torch.expm1(-nlf_b), steps, o_b)
 
     fit.batched = batched
     fit.scope = jit_scope

@@ -9,7 +9,7 @@ from .config import (
 from .logging import setup_logger, setup_colored_logger, Colors
 from .checkpoint import CheckpointManager
 from .callbacks import CallbackList, ExperimentRecorder
-from .profiling import StepTimer, trace, annotate
+from .profiling import StepTimer, trace, annotate, spans, clear_spans
 from .device import matmul_precision, resolve_device
 
 __all__ = [
@@ -28,6 +28,8 @@ __all__ = [
     "StepTimer",
     "trace",
     "annotate",
+    "spans",
+    "clear_spans",
     "matmul_precision",
     "resolve_device",
 ]
