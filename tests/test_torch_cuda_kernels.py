@@ -338,6 +338,51 @@ def test_row_sweep_on_the_card_matches_the_host(dev, dtype):
         assert _rel(x, y) <= 1e-4
 
 
+def _network_fit_step(dev):
+    """``step()``: one vmapped SGD-G step of 8 lanes of the 8 × 5 wall's
+    network fit (the batched prune's step), each lane one core masked, from
+    fresh cores towards a target with one core masked; returns the lanes'
+    params."""
+    from tneq_tpu_torch.apps.symmetry_breaking import SymmetryBreakingConfig, make_experiment
+
+    exp = make_experiment(SymmetryBreakingConfig(fidelity_mode="network", prune_steps=1,
+                                                 device=str(dev)))
+    gen = torch.Generator().manual_seed(0)
+    start, target = exp.init_params(gen), exp.init_params(gen)
+    masks = torch.ones(8, exp.graph.ncores, device=dev)
+    masks[torch.arange(8), torch.arange(8)] = 0.0
+    shared = exp.prune_fit.prepare(target, exp.mask_vector([3]))
+
+    def step():
+        params, _, steps, _ = exp.prune_fit.drivers.batched(start, masks, *shared)
+        assert steps == 1
+        return params
+
+    return step
+
+
+def test_network_fit_step_queues_without_a_host_sync(dev, monkeypatch):
+    """The batched prune's step never waits for the card: with CUDA's sync
+    check set to raise, one step runs through (the Cayley solve reads no
+    LU info to the host), and its params equal those of the step that
+    solves by ``torch.linalg.solve`` (run first, as the warm-up), bit for
+    bit."""
+    from tneq_tpu_torch.optim import stiefel
+
+    step = _network_fit_step(dev)
+    with monkeypatch.context() as m:
+        m.setattr(stiefel, "_solve_unchecked", torch.linalg.solve)
+        want = step()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = step()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for name, v in want.items():
+        assert torch.equal(got[name], v), name
+
+
 # ---------------------------------------------------------------------------
 # B1/B2 with a lane axis: the batched prune's lanes as one launch
 # ---------------------------------------------------------------------------

@@ -10,9 +10,12 @@ retraction forced (``1``).  f32 tolerances: rtol 2e-5, atol 2e-6 over three
 steps.
 """
 
+import warnings
+
 import numpy as np
 import pytest
 import torch
+from torch.func import vmap
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ from tneq_tpu.optim import schedules as js
 from tneq_tpu.optim import stiefel as jst
 from tneq_tpu_torch.optim import factory as tf
 from tneq_tpu_torch.optim import manifold as tm
+from tneq_tpu_torch.optim import pair_stiefel as tps
 from tneq_tpu_torch.optim import schedules as ts
 from tneq_tpu_torch.optim import stiefel as tst
 
@@ -179,3 +183,75 @@ def test_manifold_helpers_parity(dtype):
     got = tm.cayley_step(torch.as_tensor(g.T), torch.as_tensor(w), 0.3)
     ref = jm.cayley_step(jnp.asarray(g.T), jnp.asarray(w), 0.3)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+# The three Cayley solves (SGD-G/Adam-G's, the pair form's, the manifold
+# helper's) skip ``torch.linalg.solve``'s check of the LU on the host, which
+# on a card is a stream synchronise in every optimizer step.  They must still
+# give its result bit for bit, alone and vmapped over lanes as the batched
+# fits run them, without falling back to a per-lane loop.
+
+CAYLEY_CASES = ["stiefel-complex64", "stiefel-float32", "manifold-complex64",
+                "manifold-float32", "pair-float32"]
+
+
+def _cayley_case(case, lanes=0):
+    """``(module, solve, args)``: one Cayley solve on random skew-Hermitian
+    W, batched over 3 systems (the manifold helper takes one), with a
+    leading axis of ``lanes`` if given."""
+    where, dtype = case.split("-")
+    gen = torch.Generator().manual_seed(5)
+    batch = ((lanes,) if lanes else ()) + (() if where == "manifold" else (3,))
+    pair = (2,) if where == "pair" else ()
+
+    def draw(*shape):
+        return torch.randn(*batch, *pair, *shape, generator=gen, dtype=getattr(torch, dtype))
+
+    w, x = draw(4, 4), draw(4, 2)
+    alpha = torch.rand(batch, generator=gen) + 0.05
+    if where == "pair":
+        re, im = tps._re(w), tps._im(w)
+        return tps, tps._pair_cayley_solve, (alpha, tps._pair(re - re.mT, im + im.mT), x)
+    w = w - w.mH
+    if where == "stiefel":
+        return tst, tst._cayley_solve, (alpha, w, x)
+    return tm, tm.cayley_step, (x, w, 0.3)
+
+
+@pytest.mark.parametrize("lanes", [0, 8])
+@pytest.mark.parametrize("case", CAYLEY_CASES)
+def test_cayley_solves_give_linalg_solves_bits(case, lanes, monkeypatch):
+    mod, solve, args = _cayley_case(case, lanes)
+    if lanes:
+        dims = tuple(0 if isinstance(a, torch.Tensor) else None for a in args)
+        solve = vmap(solve, in_dims=dims, randomness="same")
+    torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = solve(*args)
+    finally:
+        torch._C._functorch._set_vmap_fallback_warning_enabled(False)
+    assert not [w for w in caught if "batching rule" in str(w.message)]
+    monkeypatch.setattr(mod, "_solve_unchecked", torch.linalg.solve)
+    assert torch.equal(got, solve(*args))
+
+
+@pytest.mark.parametrize("make", [tst.sgdg, tst.adamg, tps.pair_sgdg])
+def test_stiefel_updates_never_call_linalg_solve(make, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("torch.linalg.solve checks the LU on the host")
+
+    monkeypatch.setattr(torch.linalg, "solve", refuse)
+    gen = torch.Generator().manual_seed(0)
+    shape = (2, 2, 2, 2, 2) if make is tps.pair_sgdg else (2, 2, 2, 2)
+    dtype = torch.float32 if make is tps.pair_sgdg else torch.complex64
+
+    def draw():
+        return {f"c{i:02d}": torch.randn(shape, generator=gen, dtype=dtype) for i in range(35)}
+
+    params, grads = draw(), draw()
+    opt = make(1e-2, momentum=0.9, retraction_prob=1.0)
+    updates, state = opt.update(grads, opt.init(params), params)
+    assert state.count == 1
+    assert all(bool(torch.isfinite(u).all()) for u in updates.values())

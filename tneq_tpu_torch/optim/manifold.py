@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .stiefel import matrix_norm_one, qr_retraction, unit_rows
+from .stiefel import _solve_unchecked, matrix_norm_one, qr_retraction, unit_rows
 
 __all__ = [
     "sym",
@@ -63,7 +63,8 @@ def sphere_transport(y: torch.Tensor, h: torch.Tensor, eps: float = 1e-8) -> tor
 
 
 def cayley_step(x: torch.Tensor, w: torch.Tensor, alpha) -> torch.Tensor:
-    """Y = (I − α/2·W)⁻¹(I + α/2·W)·X via a linear solve."""
+    """Y = (I − α/2·W)⁻¹(I + α/2·W)·X via a linear solve, for W
+    skew-Hermitian (the solve is not checked, as in JAX)."""
     eye = torch.eye(w.shape[0], dtype=w.dtype, device=w.device)
     half = torch.as_tensor(alpha).to(w.real.dtype) / 2
-    return torch.linalg.solve(eye - half * w, (eye + half * w) @ x)
+    return _solve_unchecked(eye - half * w, (eye + half * w) @ x)

@@ -25,7 +25,8 @@ from typing import Dict, NamedTuple
 
 import torch
 
-from .stiefel import EPS, GradientTransformation, ScalarOrSchedule, _draw, _lr_at, _rows_cols
+from .stiefel import (EPS, GradientTransformation, ScalarOrSchedule, _draw, _lr_at, _rows_cols,
+                      _solve_unchecked)
 
 __all__ = [
     "pair_sgdg",
@@ -111,7 +112,7 @@ def _pair_cayley_solve(alpha, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     big = torch.cat([torch.cat([a_re, -a_im], dim=-1),
                      torch.cat([a_im, a_re], dim=-1)], dim=-2)  # E(I − hW)
     rhs = torch.cat([_re(b), _im(b)], dim=-2)  # [..., 2n, r]
-    sol = torch.linalg.solve(big, rhs)
+    sol = _solve_unchecked(big, rhs)
     return _pair(sol[..., :n, :], sol[..., n:, :])
 
 

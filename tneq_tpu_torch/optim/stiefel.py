@@ -84,12 +84,22 @@ def _half(alpha: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (alpha.to(w.real.dtype) / 2)[..., None, None]
 
 
+def _solve_unchecked(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.solve(a, b)`` without its check of the LU's ``info``
+    on the host: the same partial-pivoting LU solve, bit for bit, but no
+    device-to-host read, so a step that calls it does not wait for the card.
+    Every Cayley system I − (α/2)·W has W skew-Hermitian, so its eigenvalues
+    have modulus ≥ 1 and it is never singular (JAX's solve checks nothing
+    either)."""
+    return torch.linalg.solve_ex(a, b, check_errors=False).result
+
+
 def _cayley_solve(alpha, w, x):
     """Y = (I - α/2·W)⁻¹ (I + α/2·W) X via a linear solve (batched over the
     leading axes; ``alpha`` has the batch shape)."""
     eye = torch.eye(w.shape[-1], dtype=w.dtype, device=w.device)
     half = _half(alpha, w)
-    return torch.linalg.solve(eye - half * w, (eye + half * w) @ x)
+    return _solve_unchecked(eye - half * w, (eye + half * w) @ x)
 
 
 def _cayley_iterative(alpha, w, x, iters: int = 8):
