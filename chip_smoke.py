@@ -14,6 +14,13 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    times (CUDA events around one call, median, and the card's own time from
    torch.profiler, also per site), their launch plans (cluster size,
    shared memory) and bounds;
+   Then row_gate_kernels — R1/R2, the row sweep's gate-step kernels
+   (``csrc/row_gate.cu``, added for the row sweep: no Pallas kernel), against
+   their plain versions at the brick cell's gate steps (8 lanes; every form
+   of the 8 x 5 wall's plan, the gate conjugated or not, shared across the
+   lanes or not, float32 once), d_gate bit for bit on a second launch, and
+   their times beside the plain versions', the ``torch.einsum`` step they
+   replace and the byte bound;
 3. bench — the ``bench.py`` training program on the port: 32-qubit, bond-16
    MPS, float32, plain SGD lr 1e-3 on −log F, 200 steps; step-0 loss against
    the port's plain path on the host, falling loss, launch counts
@@ -79,7 +86,9 @@ JAX or ``tneq_tpu``, and prints one JSON line per phase:
    rounding; one prune pass warm-started at the planted network,
    ``NETWORK_PRUNE_STEPS`` steps per candidate, which must prune exactly
    the planted cores, as the same pass on the host does; fit steps/s,
-   launches per fit step, idle share.  (b) The JAX flagship,
+   launches per fit step, idle share; one 8-lane piece of the batched
+   prune, whose R1/R2 launches and einsum steps (``row_scan``'s counter)
+   must equal the row plan's.  (b) The JAX flagship,
    32 x 5 in float32 (155 cores), built by ``bench/flagship.py``'s
    ``build_32q`` and ``problem_32q`` (``run_32q``'s experiment, mask,
    target and start), 30 validation steps from its start:
@@ -531,6 +540,10 @@ _KERNELS = {
         "id": "B4",
         "replaces": "tneq_tpu/ops/pallas_kernels.py:177",
     },
+    # the row sweep's gate steps: no Pallas kernel in JAX (XLA's dots), added
+    # because cuBLAS runs their long-K gate gradients on 8 of 132 SMs
+    "row_gate_fwd": {"id": "R1", "replaces": None},
+    "row_gate_bwd": {"id": "R2", "replaces": None},
 }
 
 
@@ -757,6 +770,104 @@ def _sweep_case(bond: int, n: int, seed: int) -> dict:
 def phase_kernels() -> dict:
     cases = [_sweep_case(bond, SWEEP_N, seed=bond) for bond in SWEEP_BONDS]
     rec = {"phase": "kernels", "tolerance": TOL_KERNEL, "cases": cases}
+    emit(rec)
+    return rec
+
+
+def phase_row_gate_kernels() -> dict:
+    """R1/R2 (``csrc/row_gate.cu``) against their plain versions at the
+    brick cell's gate steps (8 lanes, complex64; every form, the gate
+    conjugated or not, per lane or shared with lane stride 0; float32 once
+    per form), the backward's d_gate bit for bit on a second launch; then
+    their times at 8 lanes (B side: conjugated gate), the plain versions',
+    the one ``torch.einsum`` step they replace (forward, and its autograd
+    backward), and the byte bound (each input read once, each output
+    written once; a diagonal step needs half its environment)."""
+    import torch
+
+    from tneq_tpu_torch.graph import build_brick_wall_incidence, incidence_to_graph, parse_graph
+    from tneq_tpu_torch.ops import row_scan
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    lanes = LANE_CHUNK
+
+    def rnd(shape, dtype=torch.complex64):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    cases = []
+    wall = parse_graph(incidence_to_graph(build_brick_wall_incidence(8, 5, 2)))
+    for key, (eq, form) in row_scan.gate_forms(wall).items():
+        name = str(key)  # (K, N, diagonal, big)
+        es, gs, os_ = form.shape(form.e), form.shape(form.g), form.shape(form.o)
+        errs = []
+        for dtype, conj, shared in ((torch.complex64, False, False),
+                                    (torch.complex64, True, False),
+                                    (torch.complex64, True, True),
+                                    (torch.float32, False, False)):
+            env, dout = rnd((lanes,) + es, dtype), rnd((lanes,) + os_, dtype)
+            gate = rnd(gs, dtype).expand((lanes,) + gs) if shared else rnd((lanes,) + gs, dtype)
+            out = row_scan._gate_fwd_cuda(env, gate, form, conj)
+            d_env, d_gate = row_scan._gate_bwd_cuda(env, gate, dout, form, conj, True, True)
+            d_gate2 = row_scan._gate_bwd_cuda(env, gate, dout, form, conj, False, True)[1]
+            ref = row_scan._gate_fwd_plain(env, gate, form, conj)
+            r_env, r_gate = row_scan._gate_bwd_plain(env, gate, dout, form, conj, True, True)
+            torch.cuda.synchronize()
+            err = {"dtype": str(dtype).replace("torch.", ""), "conj": conj, "shared": shared,
+                   "out": rel_err(out, ref), "d_env": rel_err(d_env, r_env),
+                   "d_gate": rel_err(d_gate, r_gate),
+                   "d_gate_same_bits": bool(torch.equal(d_gate, d_gate2))}
+            check(max(err["out"], err["d_env"], err["d_gate"]) <= TOL_KERNEL,
+                  f"row_gate {name} {err}")
+            check(err["d_gate_same_bits"], f"row_gate {name}: d_gate differs between launches")
+            errs.append(err)
+        env, dout = rnd((lanes,) + es), rnd((lanes,) + os_)
+        gate = rnd((lanes,) + gs)
+        elem = env.element_size()
+        env_bytes = env.numel() * elem // (2 if form.d else 1)
+        fwd_bytes = env_bytes + gate.numel() * elem + dout.numel() * elem
+        # reads E, G and dO, writes dE (whole, zero off a diagonal) and dG
+        bwd_bytes = (env_bytes + dout.numel() * elem + env.numel() * elem
+                     + 2 * gate.numel() * elem)
+        fwd_flops = 8 * lanes * form.size(form.f) * form.size(form.k) * form.size(form.n)
+
+        def fwd():
+            return row_scan._gate_fwd_cuda(env, gate, form, True)
+
+        def bwd():
+            return row_scan._gate_bwd_cuda(env, gate, dout, form, True, True, True)
+
+        def plain_fwd():
+            return row_scan._gate_fwd_plain(env, gate, form, True)
+
+        def plain_bwd():
+            return row_scan._gate_bwd_plain(env, gate, dout, form, True, True, True)
+
+        ops = (env, gate.conj()) if form.big == 0 else (gate.conj(), env)
+        lettered = row_scan._ellipsis(eq)[0]
+        leaves = [o.detach().requires_grad_(True) for o in (env, gate)]
+
+        def library_fwd():
+            return torch.einsum(lettered, *ops)
+
+        def library_bwd():
+            e, g = leaves
+            t = torch.einsum(lettered, *((e, g.conj()) if form.big == 0 else (g.conj(), e)))
+            return torch.autograd.grad(t, leaves, dout)
+
+        cases.append({
+            "form": name, "equation": eq, "lanes": lanes,
+            "K": form.size(form.k), "N": form.size(form.n), "diagonal": bool(form.d),
+            "env_entries": form.size(form.e), "errors": errs,
+            "fwd_ms": cuda_ms(fwd), "fwd_device_ms": device_ms(fwd),
+            "bwd_ms": cuda_ms(bwd), "bwd_device_ms": device_ms(bwd),
+            "plain_fwd_device_ms": device_ms(plain_fwd),
+            "plain_bwd_device_ms": device_ms(plain_bwd, reps=5),
+            "library_fwd_device_ms": device_ms(library_fwd),
+            "library_bwd_device_ms": device_ms(library_bwd, reps=5),
+            "fwd": _bound(fwd_bytes, fwd_flops), "bwd": _bound(bwd_bytes, 2 * fwd_flops),
+        })
+    rec = {"phase": "row_gate_kernels", "tolerance": TOL_KERNEL, "cases": cases}
     emit(rec)
     return rec
 
@@ -1633,6 +1744,26 @@ def phase_brick_network(smi: str, dense_fitted) -> dict:
         float(m)  # the exit test's host sync, as in the fit loop
 
     prof8 = _profile_steps(one_step, dt_val / vsteps * 1e3, steps=1)
+
+    # one piece of the batched prune, as the benchmark's cell runs it: the
+    # row sweep's gate steps each launch R1 (and R2 with a gradient) once
+    # for all lanes, prepare's <t,t> forward included
+    masks = torch.stack([exp.mask_vector([c]) for c in range(LANE_CHUNK)])
+    torch.cuda.synchronize()
+    row_scan.reset_launch_counts()
+    res = exp.prune_fit.batched(_planted(exp, BRICK_MASK), masks, *target,
+                                chunk_steps=BATCHED_K_NETWORK)
+    torch.cuda.synchronize()
+    row_launches = row_scan.launch_counts()
+    rows = row_scan._schedule(exp.graph, None)
+    gates = sum(f is not None for r in rows for f in r.gates or ())
+    einsums = sum(len(r.steps) for r in rows if r.steps) - gates
+    overlaps = 1 + 2 * res.steps  # <t,t>, then <eff,t> and <eff,eff> per step
+    planned = {"row_gate_fwd": gates * overlaps, "row_gate_bwd": gates * 2 * res.steps,
+               "row_step_einsum": einsums * overlaps}
+    check(row_launches == planned,
+          f"brick_network: {LANE_CHUNK}-lane piece of {res.steps} steps launched "
+          f"{row_launches}, planned {planned}")
     seconds_a = time.perf_counter() - t_start
     t_b = time.perf_counter()
 
@@ -1712,6 +1843,10 @@ def phase_brick_network(smi: str, dense_fitted) -> dict:
             "host_prune_seconds": dt_prune_h,
             "seconds": seconds_a,
             "profile": prof8,
+            "lane_piece": {"lanes": LANE_CHUNK, "steps": res.steps,
+                           "gate_steps_per_overlap": gates,
+                           "einsum_steps_per_overlap": einsums,
+                           "row_scan_launches": row_launches},
         },
         "flagship": {
             "program": "bench/flagship.py::build_32q and problem_32q (run_32q's "
@@ -4117,7 +4252,7 @@ def phase_bench_runners(smi: str, tmp: str) -> list:
 
 def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                  batched: list, large_n: dict, prob: dict, distributed: list,
-                 stages: dict, runners: dict) -> dict:
+                 stages: dict, runners: dict, row_gate: dict, brick_network: dict) -> dict:
     main_case = next(c for c in kern["cases"] if c["S"] == 256)
     dist = {r["part"]: r for r in distributed}
     fsdp = dist["c_fsdp_headline"]
@@ -4260,6 +4395,29 @@ def kernels_line(kern: dict, bench: dict, transfer: dict, born: dict, cli: dict,
                 for c in transfer["cases"]
                 if c["kernel"] == name and (c["B"], c["D"], c["K"]) != shape],
         })
+    # the row sweep's gate steps at the brick cell's 8 lanes, each form
+    piece = brick_network["reference_default"]["lane_piece"]
+    for name, part in (("row_gate_fwd", "fwd"), ("row_gate_bwd", "bwd")):
+        meta = _KERNELS[name]
+        rows.append({
+            "name": name,
+            "id": meta["id"],
+            "route": "cuda",
+            "source": "tneq_tpu_torch/csrc/row_gate.cu",
+            "replaces": meta["replaces"],
+            # one 8-lane piece of the batched prune (phase 9 (a)), as planned
+            "launches": piece["row_scan_launches"][name],
+            "piece_steps": piece["steps"],
+            "gate_steps_per_overlap": piece["gate_steps_per_overlap"],
+            "forms": [{
+                "form": c["form"], "K": c["K"], "N": c["N"], "lanes": c["lanes"],
+                "ms": c[f"{part}_ms"], "device_ms": c[f"{part}_device_ms"],
+                "plain_device_ms": c[f"plain_{part}_device_ms"],
+                "library_device_ms": c[f"library_{part}_device_ms"],
+                "bound_ms": c[part]["bound_ms"], "bound_by": c[part]["bound_by"],
+                "max_rel_err": max(max(e["out"], e["d_env"], e["d_gate"]) for e in c["errors"]),
+            } for c in row_gate["cases"]],
+        })
     return {"kernels": rows}
 
 
@@ -4288,6 +4446,7 @@ def main() -> int:
         setup = timed("setup", phase_setup)
         smi = setup["nvidia_smi"]
         kern = timed("kernels", phase_kernels)
+        row_gate = timed("row_gate_kernels", phase_row_gate_kernels)
         lane_kern = timed("lane_kernels", phase_lane_kernels, smi)
         bench = timed("bench", phase_bench, smi)
         _, experiment = timed("experiment", phase_experiment)
@@ -4317,7 +4476,7 @@ def main() -> int:
         return 1
     emit({"phase": "timing", "seconds": seconds, "total": sum(seconds.values())})
     emit(kernels_line(kern, bench, transfer, born, cli, [lane_kern] + batched, large_n,
-                      prob, distributed, stages, runners[-1]))
+                      prob, distributed, stages, runners[-1], row_gate, brick_network))
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

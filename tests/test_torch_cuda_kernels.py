@@ -1,6 +1,7 @@
-"""The sweep kernels B1/B2 and the transfer-sweep kernels B3/B4 on the card
-against their plain versions; training with wide cores through B4 and the
-pairwise einsum path on the card against the host.
+"""The sweep kernels B1/B2, the transfer-sweep kernels B3/B4 and the row
+sweep's gate-step kernels R1/R2 on the card against their plain versions;
+training with wide cores through B4 and the pairwise einsum path on the
+card against the host; the network fit's gate steps on R1/R2.
 
 These tests need a CUDA card and skip without one; they import no JAX, so
 they run on the machine with the card with the repository's conftest left
@@ -695,3 +696,120 @@ def test_c5_meshed_engine_takes_the_gate(dev):
         plain = EngineSiamese(dtype=dtype, device=dev).contract_with_compiled_strategy(
             model, states, ms)
         assert bool(torch.isfinite(probs).all()) and _rel(probs, plain) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# R1/R2: the row sweep's gate steps (csrc/row_gate.cu)
+# ---------------------------------------------------------------------------
+
+import dataclasses  # noqa: E402
+import re  # noqa: E402
+
+from tneq_tpu_torch.ops import row_scan as rs  # noqa: E402
+
+TOL_GATE = 5e-5  # d_gate sums 2^16 products per entry, in another order than cuBLAS
+
+
+def _gate_forms(n, cells, wide_bonds=False):
+    """``{key: GateForm}``: one planned gate step of each form of the wall
+    (its B side with rank-3 internal bonds with ``wide_bonds``)."""
+    from tneq_tpu_torch.graph import build_brick_wall_incidence, incidence_to_graph, parse_graph
+
+    dsl = incidence_to_graph(build_brick_wall_incidence(n, cells, 2))
+    g = parse_graph(dsl)
+    gb = parse_graph(re.sub(r"(?<=[A-Za-z])-2-(?=[A-Za-z])", "-3-", dsl)) if wide_bonds else None
+    return {f"{n}x{cells}{'b' if wide_bonds else ''}-{key}": form
+            for key, (_, form) in rs.gate_forms(g, gb).items()}
+
+
+_GATE_FORMS = {**_gate_forms(8, 5), **_gate_forms(5, 3, wide_bonds=True)}
+
+
+@pytest.mark.parametrize("shared", [False, True])
+@pytest.mark.parametrize("conj", [False, True])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+@pytest.mark.parametrize("lanes", [8, 1])
+@pytest.mark.parametrize("key", sorted(_GATE_FORMS))
+def test_row_gate_kernels_match_plain_versions(dev, key, lanes, dtype, conj, shared):
+    """At the brick cell's gate steps (8 lanes, 2^18- and 2^20-entry
+    environments, K = N = 4 and K = 4, N = 16) and the rank-3 forms of a
+    graph_b plan; the gate conjugated or not, per lane or shared (lane
+    stride 0).  Outputs are poisoned first; d_gate is the same bits on a
+    second launch."""
+    form = _GATE_FORMS[key]
+    gen = torch.Generator(device=dev).manual_seed(sum(map(ord, key)))
+
+    def rnd(shape):
+        return torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+    gs = form.shape(form.g)
+    env, dout = rnd((lanes,) + form.shape(form.e)), rnd((lanes,) + form.shape(form.o))
+    gate = rnd(gs).expand((lanes,) + gs) if shared else rnd((lanes,) + gs)
+    _poison((2 * dout.numel(),), dev)
+    out = rs._gate_fwd_cuda(env, gate, form, conj)
+    _poison((2 * env.numel(),), dev)
+    d_env, d_gate = rs._gate_bwd_cuda(env, gate, dout, form, conj, True, True)
+    again = rs._gate_bwd_cuda(env, gate, dout, form, conj, False, True)
+    alone = rs._gate_bwd_cuda(env, gate, dout, form, conj, True, False)
+    ref = rs._gate_fwd_plain(env, gate, form, conj)
+    r_env, r_gate = rs._gate_bwd_plain(env, gate, dout, form, conj, True, True)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= TOL_GATE
+    assert bool(torch.isfinite(d_env).all()), "R2 left a cell of d_env unwritten"
+    assert _rel(d_env, r_env) <= TOL_GATE
+    assert _rel(d_gate, r_gate) <= TOL_GATE
+    assert again[0] is None and alone[1] is None
+    assert torch.equal(again[1], d_gate) and torch.equal(alone[0], d_env)
+
+
+def test_row_gate_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    form = _GATE_FORMS["8x5-(4, 4, False, 1)"]
+    env = torch.randn((2,) + form.shape(form.e), dtype=torch.complex64, device=dev)
+    gate = torch.randn((2,) + form.shape(form.g), dtype=torch.complex64, device=dev)
+    with pytest.raises(ValueError, match="float32 or complex64"):
+        rs._gate_fwd_cuda(env.to(torch.complex128), gate.to(torch.complex128), form, False)
+    with pytest.raises(ValueError, match="expected"):
+        rs._gate_fwd_cuda(env, gate.cpu(), form, False)
+    with pytest.raises(ValueError, match="shape"):
+        rs._gate_fwd_cuda(env, gate[:, :1], form, False)
+    with pytest.raises(ValueError, match="lane axes"):  # lanes that merge into no one stride
+        lanes = torch.randn((2, 3) + form.shape(form.e), dtype=torch.complex64, device=dev)
+        rs._gate_fwd_cuda(lanes.transpose(0, 1), gate[:1].expand(3, 2, *gate.shape[1:]),
+                          form, False)
+    wide = dataclasses.replace(form, sizes=tuple((c, 32 if c in form.n else s)
+                                                 for c, s in form.sizes))
+    with pytest.raises(ValueError, match="K·N"):
+        rs._gate_fwd_cuda(torch.randn(wide.shape(wide.e), dtype=torch.complex64, device=dev),
+                          torch.randn(wide.shape(wide.g), dtype=torch.complex64, device=dev),
+                          wide, False)
+
+
+def test_network_fit_step_takes_the_gate_kernels_for_every_gate_step(dev):
+    """One 8-lane step of the 8 x 5 network fit: its two overlaps with a
+    gradient each launch R1 for the 54 planned gate steps and R2 for the
+    same 54 in the backward; 15 steps a sweep stay on einsum."""
+    step = _network_fit_step(dev)
+    step()
+    torch.cuda.synchronize()
+    rs.reset_launch_counts()
+    step()
+    torch.cuda.synchronize()
+    assert rs.launch_counts() == {"row_gate_fwd": 108, "row_gate_bwd": 108,
+                                  "row_step_einsum": 30}
+
+
+def test_network_fit_step_runs_no_long_k_bmm(dev):
+    """torch.profiler over one 8-lane step of the 8 x 5 network fit: no
+    ``aten::bmm`` contracts 4096 entries or more (the gate gradients ran
+    as 32 x 32-tile GEMMs with K = 65536 before the gate kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = _network_fit_step(dev)
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        step()
+        torch.cuda.synchronize()
+    bmms = [e.input_shapes for e in prof.events() if e.name == "aten::bmm"]
+    assert bmms, "the step ran no aten::bmm at all"
+    assert not [s for s in bmms if len(s[0]) == 3 and s[0][2] >= 4096]

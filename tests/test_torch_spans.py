@@ -25,7 +25,7 @@ from tneq_tpu_torch.utils import profiling
 from tneq_tpu_torch.utils.profiling import annotate, clear_spans, spans, trace
 
 K = 2  # steps of the chunk
-ROWS = 4  # the 4 × 2 wall's rows: 3 of them run the pairwise executor
+ROWS = 4  # the 4 × 2 wall's rows, each in a row_sweep.row span
 SLACK_NS = 500_000  # the profiler's clock converter against time.time_ns()
 
 
@@ -102,7 +102,7 @@ def test_batched_piece_records_the_span_tree(toy, threads):
     assert Counter(s.name for s in sp) == {
         "fit.batched": 1, "fit.prepare": 1, "driver.batched": 1, "driver.exit_test": 1,
         "driver.chunk": 1, "step.grad": K, "step.update": K, "loss.mask": K + 1,
-        "row_sweep.overlap": overlaps, "pairwise.execute": overlaps * (ROWS - 1),
+        "row_sweep.overlap": overlaps, "row_sweep.row": overlaps * ROWS,
         "optim.cayley": K,
     }
     parent = Counter((s.name, sp[s.parent].name if s.parent >= 0 else None) for s in sp)
@@ -117,7 +117,7 @@ def test_batched_piece_records_the_span_tree(toy, threads):
         ("step.grad", "driver.chunk"): K,
         ("loss.mask", "step.grad"): K,
         ("row_sweep.overlap", "step.grad"): 2 * K,
-        ("pairwise.execute", "row_sweep.overlap"): overlaps * (ROWS - 1),
+        ("row_sweep.row", "row_sweep.overlap"): overlaps * ROWS,
         ("step.update", "driver.chunk"): K,
         ("optim.cayley", "step.update"): K,
     }

@@ -26,7 +26,7 @@ __all__ = ["SOURCES", "build", "build_log", "library"]
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("chain_sweep", "transfer_step")
+SOURCES = ("chain_sweep", "row_gate", "transfer_step")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",

@@ -3,8 +3,9 @@ log-space contraction for any topology.
 
 Counterpart of ``tneq_tpu/ops/pairwise.py``.  An einsum runs as its
 explicit pairwise contraction path, two operands per ``torch.einsum``
-(``execute_pairwise``: the one executor of the port, which
-``ops/contract.py`` and ``ops/row_scan.py`` call too), and with
+(``execute_pairwise``, which ``ops/contract.py`` calls too; the row
+sweep runs its planned steps in a Function of its own,
+``ops/row_scan.py``), and with
 ``rescale=True`` every intermediate is renormalised:
 
     t_k   <- contract(t_i, t_j)
